@@ -4,18 +4,28 @@
     python3 chip_smoke.py          # from the repository root; needs one card
 
 Phases (any failure ends the run with a non-zero exit and no result line):
-  1. build every kernel of the main path from csrc/ (nvcc, in parallel);
+  1. build every kernel of the main paths from csrc/ (nvcc, in parallel);
   2. each kernel against its plain PyTorch version on the card, same inputs:
-     short chains elementwise, production holes within 8x the measured
-     chaos envelope, and the structural invariants of unmasked rows;
-  3. the main path: full-width 256 px serving (Config() defaults, weights
-     from a seed) through InferenceSession, single and coalesced requests,
-     with the kernels' launch counts read around it;
+     the scan on short chains elementwise and on production holes within 8x
+     the measured chaos envelope, with the structural invariants of
+     unmasked rows; the kbar kernel bit for bit on the same cases; then
+     the attention's autograd Function with the kernels against the same
+     Function with the plain versions, output and gradient;
+  3. the serving path: full-width 256 px serving (Config() defaults,
+     weights from a seed) through InferenceSession, single and coalesced
+     requests, with the kernels' launch counts read around it;
   4. the whole forward with the kernel against the plain scan, and the card
      against the CPU at a small config;
-  5. numbers: kernel and plain times, bounds, serving latency/throughput.
-The line before the last is a JSON object with a `kernels` list; the last
-line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+  5. the training path: three full-width train steps at batch 8 through
+     create_state / make_train_step, launch counts read around them; the
+     trained generators then serve a request; a few more steps for the
+     timing and a profile; one step with the kernels against the same step
+     with the plain versions;
+  6. numbers: kernel and plain times, bounds, serving latency/throughput,
+     train-step time and peak memory.
+Three lines end the output, each on its own: a JSON object with a `kernels`
+list, the card's name and power limit as nvidia-smi gives them, and last
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +48,11 @@ DIRECT_TOL = 2e-3      # short chains, elementwise
 ENVELOPE_K = 8.0       # production holes: within 8x the chaos envelope
 PERTURB = 1e-6         # the envelope's input perturbation
 E2E_TOL = 1e-3         # whole forward, kernel vs plain, small hole
+GRAD_TOL = 1e-5        # attention Function, kernels vs plain, short chains
+STEP_TOL = 1e-3        # train-step losses, kernels vs plain, small hole
+TRAIN_STEPS = 3        # counted and checked
+TIMED_STEPS = 5        # more steps after those, for a steadier median
+TRAIN_BATCH = 8
 SCAN_C = 512           # attention channels at the default width (8*ngf)
 
 
@@ -91,22 +106,36 @@ def scan_bound(flag, c: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def profile_requests(session, requests, card: str) -> None:
-    """Device time by kernel class over a few b1 requests (torch.profiler),
-    and the device's busy share of the host wall time."""
+def kbar_bound(bsz: int, n: int, ind_bytes: int) -> dict:
+    """Least time for the kbar kernel: B*N*N f32 written, and flag, a, b
+    (f32) and ind read once.  Operations: two products and a sum an
+    element."""
+    nbytes = bsz * n * n * 4 + bsz * n * (12 + ind_bytes)
+    ops = 3 * bsz * n * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def profile_calls(label: str, calls, card: str) -> None:
+    """Device time by kernel class over `calls` (a list of thunks), with
+    torch.profiler, and the device's busy share of the host wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     classes = (("scan kernel", ("scan_stream",)),
+               ("kbar kernel", ("kbar_build",)),
                ("convolution", ("conv", "cudnn", "xmma", "implicit",
                                 "winograd", "fft", "wgrad", "dgrad")),
                ("matmul", ("gemm", "gemv")),
+               ("optimiser", ("multi_tensor", "adam")),
                ("copy/fill", ("memcpy", "memset")))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for r in requests:
-            session.run(*r)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_class, top = {}, []
@@ -124,17 +153,16 @@ def profile_requests(session, requests, card: str) -> None:
         by_class[cls] = by_class.get(cls, 0.0) + us
         top.append((us, ev.count, ev.key[:90]))
     total = sum(by_class.values())
-    n = len(requests)
+    n = len(calls)
     if total <= 0:
-        log("phase 5 profile: the profiler recorded no device time")
+        log(f"profile of {label}: the profiler recorded no device time")
         return
-    log(f"phase 5 profile, {n} b1 requests at 256 px: device busy "
-        f"{total / wall_us:.1%} of wall, {total / n / 1e3:.3f} ms device "
-        f"time a request  [{card}]")
+    log(f"profile of {n} {label}: device busy {total / wall_us:.1%} of "
+        f"wall, {total / n / 1e3:.3f} ms device time each  [{card}]")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        log(f"  {cls:18s} {us / n / 1e3:8.3f} ms/request  {us / total:6.1%}")
+        log(f"  {cls:18s} {us / n / 1e3:8.3f} ms each  {us / total:6.1%}")
     for us, count, name in sorted(top, reverse=True)[:8]:
-        log(f"  top {us / n / 1e3:8.3f} ms/request x{count / n:g}: {name}")
+        log(f"  top {us / n / 1e3:8.3f} ms each x{count / n:g}: {name}")
 
 
 def main() -> int:
@@ -228,9 +256,68 @@ def main() -> int:
         ("3.7% hole, N=4096", 3, 8, 64, 64, [(20, 24, 13, 12)], True,
          "envelope"),
     ]
+    def compare_kbar(feat, ref, flag, kr):
+        """The kbar kernel against its plain version on the (flag, ind, a,
+        b) that the training forward gives it: prep, then the scan kernel."""
+        _, pn, ind, vmax, known = TA.prep(feat, ref, flag, kr)
+        flag = flag.contiguous()
+        _, a, b = TAC.scan_stream_cuda(flag, vmax.contiguous(), pn, known)
+        ind = ind.contiguous()
+        got = TAC.kbar_build_cuda(flag, ind, a, b)
+        want = TA.kbar_build_reference(flag, ind, a, b)
+        torch.cuda.synchronize()
+        um = flag == 0
+        onehot = F.one_hot(ind[um], flag.shape[1]).to(torch.float32)
+        return {"equal": torch.equal(got, want),
+                "trunc_equal": torch.equal(got.trunc(), want.trunc()),
+                "d": (got - want).abs().max().item(),
+                "onehot": torch.equal(got[um], onehot),
+                "int32": torch.equal(
+                    got, TAC.kbar_build_cuda(flag, ind.int(), a, b))}
+
+    def compare_function(feat, ref, flag, kr, truncate):
+        """out and d(out.g)/d(feat) of the attention Function, kernels
+        against plain versions, same inputs and cotangent."""
+        b, n, c = feat.shape
+        side = int(n ** 0.5)
+        img = lambda t: t.transpose(1, 2).reshape(b, c, side, side)
+        g = torch.from_numpy(np.random.default_rng(n + int(kr)
+                                                   ).standard_normal(
+            (b, c, side, side)).astype(np.float32)).to(dev)
+        res = {}
+        for impl in ("cuda", "torch"):
+            x = img(feat).detach().clone().requires_grad_(True)
+            out = TA.ipsr_attention_batched(
+                x, img(ref), flag, triple_weight=1.0,
+                truncate_backward=truncate, known_replacement=kr, impl=impl)
+            out.backward(g)
+            res[impl] = (out.detach(), x.grad)
+        torch.cuda.synchronize()
+        return ((res["cuda"][0] - res["torch"][0]).abs().max().item(),
+                (res["cuda"][1] - res["torch"][1]).abs().max().item())
+
     max_abs_err = 0.0
+    kbar_max_abs_err = 0.0
     for name, seed, b, h, w, holes, kr, crit in cases:
-        r = compare(*make_case(seed, b, h, w, holes), kr)
+        case = make_case(seed, b, h, w, holes)
+        r = compare(*case, kr)
+        k = compare_kbar(*case, kr)
+        log(f"phase 2 kbar_build {name} (B={b}, N={h * w}): kernel vs plain "
+            f"max|d|={k['d']:.3e} equal={k['equal']} trunc equal="
+            f"{k['trunc_equal']} unmasked rows one-hot={k['onehot']} "
+            f"int32 ind same bits={k['int32']}")
+        check(all(k[key] for key in ("equal", "trunc_equal", "onehot",
+                                     "int32")),
+              f"{name}: kbar kernel must equal its plain version bit for bit")
+        kbar_max_abs_err = max(kbar_max_abs_err, k["d"])
+        if crit == "direct":
+            for truncate in (True, False):
+                d_out, d_grad = compare_function(*case, kr, truncate)
+                log(f"phase 2 attention Function {name}, truncate_backward="
+                    f"{truncate}: kernels vs plain out {d_out:.3e} grad "
+                    f"{d_grad:.3e} (limit {GRAD_TOL})")
+                check(d_out <= GRAD_TOL and d_grad <= GRAD_TOL,
+                      f"{name}: attention Function kernels vs plain")
         log(f"phase 2 {name} (B={b}, N={h * w}, C={SCAN_C}, masked "
             f"{r['masked']:.2%}): d_out={r['d_out']:.3e} "
             f"d_out_mean={r['d_out_mean']:.3e} d_ab={r['d_ab']:.3e} "
@@ -293,7 +380,7 @@ def main() -> int:
     concurrent = [(image(), center() if i % 2 else strokes(), image())
                   for i in range(8)]
 
-    TAC.launches = 0                      # counts: the main path only
+    TAC.launches = TAC.kbar_launches = 0  # counts: the serving path only
     t0 = time.perf_counter()
     outs = [single.run(*r) for r in requests]
     results = [None] * len(concurrent)
@@ -308,7 +395,8 @@ def main() -> int:
     for t in threads:
         t.join(600)
     torch.cuda.synchronize()
-    launches = {"scan_stream": TAC.launches}
+    launches = {"scan_stream": TAC.launches,
+                "kbar_build": TAC.kbar_launches}
     g_forwards = single.calls + batched.calls
     log(f"phase 3 served {len(requests)} single + {len(concurrent)} "
         f"concurrent requests in {time.perf_counter() - t0:.2f} s: "
@@ -321,6 +409,7 @@ def main() -> int:
         check(out.std() > 0, "result must not be constant")
     check(launches["scan_stream"] == g_forwards > 0,
           "scan kernel launches must equal netG forwards")
+    check(launches["kbar_build"] == 0, "serving must build no kbar")
 
     # ---- phase 4: whole forward, kernel vs plain; card vs CPU -------------
     infer_k = TI.make_inference_fn(cfg.replace(attention_impl="cuda"), dev)
@@ -371,10 +460,107 @@ def main() -> int:
     log(f"phase 4 64 px config, card vs CPU plain path: max|d|={d_cpu:.3e}")
     check(d_cpu <= E2E_TOL, "card vs CPU at the small config")
 
-    # ---- phase 5: numbers -------------------------------------------------
+    # ---- phase 5: the training path, full width, batch 8 ------------------
+    tcfg = Config(batch_size=TRAIN_BATCH)
+
+    def train_batch(seed, mask=None):
+        brng = np.random.default_rng(seed)
+        if mask is None:      # center squares and strokes, half and half
+            mask = np.concatenate([center(TRAIN_BATCH // 2),
+                                   strokes(TRAIN_BATCH - TRAIN_BATCH // 2)])
+        return {"image": brng.integers(0, 256, (TRAIN_BATCH, s, s, 3),
+                                       dtype=np.uint8),
+                "ref": brng.integers(0, 256, (TRAIN_BATCH, s, s, 3),
+                                     dtype=np.uint8),
+                "mask": mask}
+
+    t0 = time.perf_counter()
+    state = TI.create_state(tcfg, torch.Generator().manual_seed(tcfg.seed),
+                            dev)
+    train_step = TI.make_train_step(tcfg, dev)
+    nets = {n: getattr(state, n) for n in ("G", "P", "D", "F")}
+    before = {n: [p.detach().clone() for p in net.parameters()]
+              for n, net in nets.items()}
+    n_train = sum(p.numel() for net in nets.values()
+                  for p in net.parameters())
+    torch.cuda.synchronize()
+    log(f"phase 5 create_state: {n_train} trainable parameters, four Adam "
+        f"optimisers, {time.perf_counter() - t0:.1f} s")
+    batches = [train_batch(100 + i) for i in range(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    TAC.launches = TAC.kbar_launches = 0  # counts: the training path only
+    step_ms = []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        values = {k: v.item() for k, v in metrics.items()}
+        log(f"phase 5 step {i + 1}: {step_ms[-1]:.1f} ms  " + "  ".join(
+            f"{k}={v:.4f}" for k, v in values.items()))
+        check(all(np.isfinite(v) for v in values.values()),
+              f"step {i + 1}: every metric must be finite")
+    train_launches = {"scan_stream": TAC.launches,
+                      "kbar_build": TAC.kbar_launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"phase 5 trained {TRAIN_STEPS} steps at B={TRAIN_BATCH}: launches "
+        f"{train_launches}, state.step={state.step}")
+    check(state.step == TRAIN_STEPS, "state.step must count the steps")
+    check(train_launches == {"scan_stream": TRAIN_STEPS,
+                             "kbar_build": TRAIN_STEPS},
+          "each kernel must launch exactly once a train step")
+    for n, net in nets.items():
+        check(any(not torch.equal(p, q)
+                  for p, q in zip(net.parameters(), before[n])),
+              f"net{n}'s parameters must change")
+    del before
+
+    # phase 3's InferenceSession answers with the trained generators
+    single.state = TI.Models(state.G.eval(), state.P.eval(), state.vgg)
+    scan0, calls0 = TAC.launches, single.calls
+    out = single.run(image(), center(), image())
+    check(out.dtype == np.uint8 and out.shape == (1, s, s, 3)
+          and out.std() > 0, "trained generators must still serve")
+    check(TAC.launches - scan0 == single.calls - calls0 == 1
+          and TAC.kbar_launches == TRAIN_STEPS,
+          "serving the trained generators: one scan launch, no kbar")
+    single.state = models
+    # more steps for the timing alone, then where a step's device time goes
+    # (two further steps under the profiler); all outside the counts
+    for i in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        train_step(state, batches[i % TRAIN_STEPS])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gib = max(peak_gib, torch.cuda.max_memory_allocated() / 2 ** 30)
+    profile_calls(f"train steps at 256 px, B={TRAIN_BATCH}",
+                  [lambda b=b: train_step(state, b) for b in batches[:2]],
+                  card)
+    del state, nets
+
+    # one step with the kernels against the same step with the plain
+    # versions, same weights and batch, at a 9-position hole
+    small_batch = train_batch(200, np.repeat(small, TRAIN_BATCH, axis=0))
+    losses = {}
+    for impl in ("cuda", "torch"):
+        icfg = tcfg.replace(attention_impl=impl)
+        fresh = TI.create_state(icfg,
+                                torch.Generator().manual_seed(tcfg.seed), dev)
+        _, m = TI.make_train_step(icfg, dev)(fresh, small_batch)
+        losses[impl] = {k: v.item() for k, v in m.items()}
+        del fresh
+    d_step = max(abs(losses["cuda"][k] - losses["torch"][k])
+                 / max(abs(losses["torch"][k]), 1e-12) for k in losses["cuda"])
+    log(f"phase 5 first step at a {n_small}-position hole, kernels vs plain "
+        f"versions: max relative loss difference {d_step:.3e} (limit "
+        f"{STEP_TOL}); kernels {losses['cuda']}")
+    check(d_step <= STEP_TOL, "train-step losses, kernels vs plain versions")
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: numbers -------------------------------------------------
     log(f"card: {card}")
     cflag = TI.prepare_masks(cfg, torch.from_numpy(center()).float())[1]
-    timings = {}
+    timings, kbar_timings = {}, {}
     for b in (1, 8):
         feat, refr, _ = make_case(10 + b, b, 32, 32, [])
         flag = cflag.to(dev).expand(b, -1).contiguous()
@@ -384,18 +570,39 @@ def main() -> int:
         p_ms = cuda_ms(lambda: TA.scan_stream_reference(*args), reps=20,
                        warmup=1)
         timings[b] = dict(ms=k_ms, plain_ms=p_ms, **bound)
-        log(f"phase 5 scan_stream B={b} N=1024 C={SCAN_C} masked "
+        log(f"phase 6 scan_stream B={b} N=1024 C={SCAN_C} masked "
             f"{bound['masked']} rows: kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.2f} ms, bound {bound['bound_ms']:.5f} ms "
             f"({bound['bound_by']}: {bound['bytes']} B, {bound['ops']} ops), "
             f"share {bound['bound_ms'] / k_ms:.2%}, library call: none  "
             f"[{card}]")
 
+        _, pn, ind, vmax, known = TA.prep(feat, refr, flag, True)
+        _, ka, kb_ = TAC.scan_stream_cuda(*args)
+        kargs = (flag, ind.contiguous(), ka, kb_)
+        kbound = kbar_bound(b, flag.shape[1], ind.element_size())
+        kk_ms = cuda_ms(lambda: TAC.kbar_build_cuda(*kargs), reps=50)
+        kp_ms = cuda_ms(lambda: TA.kbar_build_reference(*kargs), reps=5,
+                        warmup=1)
+        kbar_timings[b] = dict(ms=kk_ms, plain_ms=kp_ms, **kbound)
+        log(f"phase 6 kbar_build B={b} N=1024 ({ind.dtype} ind): kernel "
+            f"{kk_ms:.4f} ms, plain {kp_ms:.2f} ms, bound "
+            f"{kbound['bound_ms']:.5f} ms ({kbound['bound_by']}: "
+            f"{kbound['bytes']} B, {kbound['ops']} ops), share "
+            f"{kbound['bound_ms'] / kk_ms:.2%}, library call: none  [{card}]")
+
+    steady = statistics.median(step_ms[1:])
+    log(f"phase 6 training 256 px B={TRAIN_BATCH}: {steady:.1f} ms a step "
+        f"(median of steps 2-{len(step_ms)}, {min(step_ms[1:]):.1f} to "
+        f"{max(step_ms[1:]):.1f}; first step {step_ms[0]:.1f} ms), "
+        f"{TRAIN_BATCH / steady * 1e3:.2f} img/s, peak allocated "
+        f"{peak_gib:.2f} GiB  [{card}]")
+
     # chain probe: the same shapes with no row and with every row masked
     for label, value in (("no row masked", 0.0), ("every row masked", 1.0)):
         flag = torch.full((8, 1024), value, device=dev)
         args = (flag,) + scan_args(feat, refr, flag, True)[1:]
-        log(f"phase 5 scan_stream B=8 N=1024 {label}: kernel "
+        log(f"phase 6 scan_stream B=8 N=1024 {label}: kernel "
             f"{cuda_ms(lambda: TAC.scan_stream_cuda(*args), reps=50):.4f} ms"
             f", bound {scan_bound(flag, SCAN_C)['bound_ms']:.5f} ms  [{card}]")
 
@@ -406,8 +613,9 @@ def main() -> int:
         single.run(*r)
         lat.append((time.perf_counter() - t0) * 1e3)
     p50 = statistics.median(lat[1:])
-    profile_requests(single, [(image(), center(), image()) for _ in range(5)],
-                     card)
+    profile_calls("b1 requests at 256 px",
+                  [lambda r=(image(), center(), image()): single.run(*r)
+                   for _ in range(5)], card)
     n_req = 32
     reqs = [(image(), center() if i % 2 else strokes(), image())
             for i in range(n_req)]
@@ -424,21 +632,36 @@ def main() -> int:
     for t in ws:
         t.join(600)
     wall = time.perf_counter() - t0
-    log(f"phase 5 serving 256 px: b1 request p50 {p50:.2f} ms "
+    log(f"phase 6 serving 256 px: b1 request p50 {p50:.2f} ms "
         f"(20 requests), b8 throughput {n_req / wall:.2f} img/s "
         f"({n_req} requests over 8 clients, {batched.calls - calls0} "
         f"batched calls)  [{card}]")
     single.close()
     batched.close()
 
-    t8 = timings[8]
+    # `launches` sums the two main paths (serving, then training); the
+    # times are those at B=8, N=1024, the shapes a train step gives both.
+    t8, k8 = timings[8], kbar_timings[8]
+    by_path = lambda name: {"serving": launches[name],
+                            "training": train_launches[name]}
     print(json.dumps({"kernels": [{
         "name": "scan_stream", "route": "cuda",
         "source": "deepinpainting_torch/csrc/scan_stream.cu",
         "replaces": "deepinpainting_tpu/ops/attention_pallas.py:107",
-        "launches": launches["scan_stream"], "max_abs_err": max_abs_err,
+        "launches": sum(by_path("scan_stream").values()),
+        "launches_by_path": by_path("scan_stream"),
+        "max_abs_err": max_abs_err,
         "ms": t8["ms"], "plain_ms": t8["plain_ms"],
         "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
+        "library_ms": None}, {
+        "name": "kbar_build", "route": "cuda",
+        "source": "deepinpainting_torch/csrc/kbar_build.cu",
+        "replaces": "deepinpainting_tpu/ops/attention_pallas.py:186",
+        "launches": sum(by_path("kbar_build").values()),
+        "launches_by_path": by_path("kbar_build"),
+        "max_abs_err": kbar_max_abs_err,
+        "ms": k8["ms"], "plain_ms": k8["plain_ms"],
+        "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
         "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,9 +22,10 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-KERNELS = ("scan_stream",)
+KERNELS = ("scan_stream", "kbar_build")
 
-# No --use_fast_math: the scan's divisions must stay IEEE.
+# No --use_fast_math: the scan's divisions must stay IEEE, and neither
+# kernel's multiply-add steps may be contracted.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

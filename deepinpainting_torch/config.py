@@ -4,12 +4,12 @@ Field for field the same as the JAX package's Config (same names, same
 defaults), so one Config JSON loads in both packages.  The port keeps a copy
 rather than importing it: it must load without the JAX package present.
 
-Fields whose feature the port does not run yet (training, bf16, int8, the
-conv pack modes, norm='batch', spatial partitioning) are kept for JSON
-compatibility; engine/inpaint.py::build_models rejects the values it cannot
-honour.  `attention_impl` also takes the port's own names: 'cuda' (the
-hand-written scan kernel; 'pallas' selects the same) and 'torch' (the plain
-PyTorch recurrence; 'lax' selects the same).
+Fields whose feature the port does not run yet (bf16, int8, the conv pack
+modes, grad_accum, remat, debug_nan, spatial partitioning) are kept for
+JSON compatibility; engine/inpaint.py::check_config and check_train_config
+reject the values they cannot honour.  `attention_impl` also takes the
+port's own names: 'cuda' (the hand-written kernels; 'pallas' selects the
+same) and 'torch' (the plain PyTorch recurrences; 'lax' selects the same).
 """
 
 from __future__ import annotations

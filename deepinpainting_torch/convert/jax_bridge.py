@@ -9,14 +9,22 @@ deepinpainting_tpu/engine/checkpoint.py::export_network_npz writes (so an
     "model/submodule/down_conv3/kernel".  The port's modules carry the same
     names (`model.submodule.down_conv3`), so each key is resolved by walking
     its path; nothing is matched by order.
+  * netD / netF: one level of the same, e.g. "conv1/kernel", "norm1/scale",
+    "head/bias".
   * VGG16: "{conv}_kernel" / "{conv}_bias", e.g. "conv1_1_kernel".
+  * with norm='batch' a network's state entry is the whole flax variables
+    dict, so its keys carry the collection first:
+    "params/model/down_conv3/kernel" and
+    "batch_stats/model/submodule/down_norm/mean".
 
 Layouts (the inverse of deepinpainting_tpu/convert/net_import.py):
   Conv2d kernel HWIO [kh,kw,I,O]         -> weight OIHW [O,I,kh,kw]
   ConvTranspose2d kernel [kh,kw,I,O]     -> weight [I,O,kh,kw] (axes only:
       the JAX kernel is stored in forward orientation and flipped at apply
       time, as torch's ConvTranspose2d flips it)
-  InstanceNorm scale / offset            -> weight / bias
+  InstanceNorm / BatchNorm scale / offset -> weight / bias
+  batch_stats mean / var                 -> running_mean / running_var
+      (`num_batches_tracked` has no counterpart and keeps its value)
 
 Every key must land on a parameter and every parameter must be filled;
 anything else raises.
@@ -34,15 +42,20 @@ from ..ops.convs import InstanceNorm
 
 _LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight",
          "offset": "bias"}
+_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _split(key: str):
-    """(module path, leaf) of a flat key."""
+    """(module path, leaf, is a running statistic) of a flat key."""
+    stats = key.startswith("batch_stats/")
+    for prefix in ("params/", "batch_stats/"):
+        if key.startswith(prefix):
+            key = key[len(prefix):]
     if "/" in key:
         path, leaf = key.rsplit("/", 1)
-        return path.replace("/", "."), leaf
+        return path.replace("/", "."), leaf, stats
     path, leaf = key.rsplit("_", 1)       # VGG: "conv1_1_kernel"
-    return path, leaf
+    return path, leaf, stats
 
 
 def _convert(layer: nn.Module, leaf: str, arr: np.ndarray) -> np.ndarray:
@@ -52,38 +65,57 @@ def _convert(layer: nn.Module, leaf: str, arr: np.ndarray) -> np.ndarray:
         if isinstance(layer, nn.Conv2d):
             return arr.transpose(3, 2, 0, 1)      # HWIO -> OIHW
         raise ValueError(f"'kernel' on a {type(layer).__name__}")
-    if leaf in ("scale", "offset") and not isinstance(layer, InstanceNorm):
+    if leaf in ("scale", "offset") and not isinstance(
+            layer, (InstanceNorm, nn.BatchNorm2d)):
+        raise ValueError(f"'{leaf}' on a {type(layer).__name__}")
+    if leaf in _STATS and not isinstance(layer, nn.BatchNorm2d):
         raise ValueError(f"'{leaf}' on a {type(layer).__name__}")
     return arr
 
 
-def bridge_state_dict(flat: Mapping[str, np.ndarray], module: nn.Module
-                      ) -> Dict[str, torch.Tensor]:
-    """The state_dict for `module` (a UnetGeneratorIPSR, UnetGenerator or
-    Vgg16 of the port) from one network's flat JAX parameter dict."""
+def bridge_tensors(flat: Mapping[str, np.ndarray], module: nn.Module
+                   ) -> Dict[str, torch.Tensor]:
+    """Every entry of a flat JAX dict in `module`'s layout, keyed by its
+    state_dict name.  Each key must land on a parameter or buffer of
+    `module`; the dict need not be complete (gradients, which have no
+    running statistics, convert this way)."""
     want = module.state_dict()
     out: Dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
-        path, leaf = _split(key)
-        if leaf not in _LEAF:
+        path, leaf, stats = _split(key)
+        names = _STATS if stats else _LEAF
+        if leaf not in names:
             raise KeyError(f"{key}: unknown leaf '{leaf}'")
         try:
             layer = module.get_submodule(path)
         except AttributeError as e:
             raise KeyError(f"{key}: no layer '{path}' in "
                            f"{type(module).__name__}") from e
-        name = f"{path}.{_LEAF[leaf]}"
+        name = f"{path}.{names[leaf]}"
         if name not in want:
             raise KeyError(f"{key}: {name} is not a parameter")
         if name in out:
             raise KeyError(f"{key}: {name} filled twice")
         t = torch.from_numpy(
-            np.ascontiguousarray(_convert(layer, leaf, np.asarray(arr)),
-                                 dtype=np.float32))
+            np.array(_convert(layer, leaf, np.asarray(arr)),
+                     dtype=np.float32, order="C"))
         if tuple(t.shape) != tuple(want[name].shape):
             raise ValueError(f"{key}: shape {tuple(t.shape)} != "
                              f"{name} {tuple(want[name].shape)}")
         out[name] = t
+    return out
+
+
+def bridge_state_dict(flat: Mapping[str, np.ndarray], module: nn.Module
+                      ) -> Dict[str, torch.Tensor]:
+    """The state_dict for `module` (a UnetGeneratorIPSR, UnetGenerator,
+    NLayerDiscriminator, PFDiscriminator or Vgg16 of the port) from one
+    network's flat JAX parameter dict: every key must land and every
+    parameter and running statistic must be filled."""
+    want = module.state_dict()
+    out = bridge_tensors(flat, module)
+    out.update((k, v) for k, v in want.items()
+               if k.endswith("num_batches_tracked"))
     missing = sorted(set(want) - set(out))
     if missing:
         raise KeyError(f"parameters not in the flat dict: {missing}")

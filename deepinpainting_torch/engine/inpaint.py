@@ -1,6 +1,7 @@
-"""The inference half of the inpainting engine (counterpart of
+"""The inpainting engine (counterpart of
 deepinpainting_tpu/engine/inpaint.py): model factory, weight init, input
-preparation and the two-stage forward.
+preparation, the two-stage forward, the inference and serving functions
+and the GAN train step.
 
 Data flow, as the JAX package's:
 
@@ -10,6 +11,14 @@ Data flow, as the JAX package's:
                as the reference's in-place masked_fill aliasing produces
   output     : fake_B (linear), and uint8 floor(clip((x+1)*127.5, 0, 255))
                for serving
+  train step : one forward of P and G; D and F step first on the detached
+               fake_B, then G and P train against the *updated*
+               discriminators.  G's feature-GAN branch is constant with
+               respect to G (VGG of the detached fake_B), and the InnerCos
+               losses enter loss_G detached under faithful_detached_cosis.
+               With norm='batch' every train-mode forward moves its
+               BatchNorm running statistics: G's and P's once a step, D's
+               four times (fake then real, in both phases).
 
 The public functions take and return the JAX layout (NHWC images, [B,H,W]
 masks) so the two packages compare like with like; images go to NCHW once
@@ -20,25 +29,35 @@ inside and the results come back to NHWC once.  Entry points run on
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..device import DeviceLike, resolve_device
+from ..losses import inner_cos_loss, l1_loss, ra_gan_loss
+from ..models.discriminators import NLayerDiscriminator, PFDiscriminator
 from ..models.unet import UnetGenerator
 from ..models.unet_ipsr import UnetGeneratorIPSR
 from ..models.vgg16 import Vgg16
 from ..ops import masks as M
 from ..ops.attention import check_impl
-from ..ops.convs import INIT_TYPES, InstanceNorm, init_weight_
+from ..ops.convs import INIT_TYPES, NORMS, InstanceNorm, init_weight_
+from .state import TrainState, create_train_state
 
 
 class Models(NamedTuple):
+    """What inference needs."""
     G: UnetGeneratorIPSR
     P: UnetGenerator
     vgg: Vgg16
+
+
+class Discriminators(NamedTuple):
+    """What training adds."""
+    D: NLayerDiscriminator
+    F: PFDiscriminator
 
 
 def check_config(cfg: Config) -> int:
@@ -52,7 +71,7 @@ def check_config(cfg: Config) -> int:
         raise NotImplementedError(cfg.which_model_netD)
     if cfg.which_model_netF != "feature":
         raise NotImplementedError(cfg.which_model_netF)
-    if cfg.norm not in ("instance", "batch"):
+    if cfg.norm not in NORMS:
         raise NotImplementedError(
             f"normalization layer [{cfg.norm}] is not found "
             "(supported: 'instance', 'batch')")
@@ -64,8 +83,7 @@ def check_config(cfg: Config) -> int:
             f"quant mode [{cfg.quant}] is not implemented "
             "(only 'none' and 'int8' are supported)")
     # Options the JAX package has and the port does not run yet.
-    for name, value, ok in (("norm", cfg.norm, "instance"),
-                            ("quant", cfg.quant, "none"),
+    for name, value, ok in (("quant", cfg.quant, "none"),
                             ("dtype", cfg.dtype, "float32"),
                             ("pack_small_cin", cfg.pack_small_cin, False),
                             ("pack_out", cfg.pack_out, False)):
@@ -86,6 +104,26 @@ def check_config(cfg: Config) -> int:
     return num_downs
 
 
+def check_train_config(cfg: Config) -> None:
+    """check_config, plus a refusal of the training options the port does
+    not run yet."""
+    if cfg.quant != "none":
+        # gradients through round() are zero: int8 is inference-only
+        raise NotImplementedError(
+            f"quant={cfg.quant!r} is inference-only; training runs full "
+            "precision")
+    check_config(cfg)
+    for name, value, ok in (("grad_accum", cfg.grad_accum, 1),
+                            ("remat", cfg.remat, False),
+                            ("debug_nan", cfg.debug_nan, False)):
+        if value != ok:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet (port trains with "
+                f"{ok!r})")
+    if cfg.gan_type not in ("lsgan", "wgan_gp", "vanilla"):
+        raise ValueError(f"unknown gan_type {cfg.gan_type!r}")
+
+
 def build_models(cfg: Config) -> Models:
     """Network factory (the role of define_G / vgg16), after check_config."""
     num_downs = check_config(cfg)
@@ -93,12 +131,50 @@ def build_models(cfg: Config) -> Models:
         G=UnetGeneratorIPSR(input_nc=cfg.input_nc_g, output_nc=cfg.output_nc,
                             num_downs=num_downs, ngf=cfg.ngf,
                             use_dropout=cfg.use_dropout,
-                            known_replacement=cfg.faithful_known_replacement),
+                            known_replacement=cfg.faithful_known_replacement,
+                            triple_weight=cfg.triple_weight,
+                            truncate_backward=cfg.faithful_backward_truncation,
+                            norm=cfg.norm),
         P=UnetGenerator(input_nc=cfg.input_nc, output_nc=cfg.output_nc,
                         num_downs=num_downs, ngf=cfg.ngf,
-                        use_dropout=cfg.use_dropout),
+                        use_dropout=cfg.use_dropout, norm=cfg.norm),
         vgg=Vgg16(cfg.vgg_width_scale),
     )
+
+
+def build_discriminators(cfg: Config) -> Discriminators:
+    """Discriminator factory (the role of define_D), after check_config.
+    netD ends in a sigmoid for gan_type 'vanilla' only."""
+    check_config(cfg)
+    return Discriminators(
+        D=NLayerDiscriminator(input_nc=cfg.input_nc, ndf=cfg.ndf,
+                              use_sigmoid=cfg.gan_type == "vanilla",
+                              norm=cfg.norm),
+        F=PFDiscriminator(
+            in_channels=max(1, int(256 * cfg.vgg_width_scale)),
+            width=max(1, int(512 * cfg.vgg_width_scale))),
+    )
+
+
+def _init_net_(net: torch.nn.Module, cfg: Config,
+               generator: torch.Generator) -> None:
+    """Conv kernels by cfg.init_type / init_gain, biases 0, InstanceNorm
+    affine (1, 0), BatchNorm scale from N(1, init_gain) for every
+    init_type, as the JAX package's init draws them."""
+    for m in net.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            init_weight_(m.weight, cfg.init_type, cfg.init_gain, generator)
+            if m.bias is not None:
+                torch.nn.init.zeros_(m.bias)
+        elif isinstance(m, InstanceNorm):
+            torch.nn.init.ones_(m.weight)
+            torch.nn.init.zeros_(m.bias)
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            with torch.no_grad():
+                m.weight.copy_(1.0 + cfg.init_gain * torch.randn(
+                    m.weight.shape, generator=generator))
+            torch.nn.init.zeros_(m.bias)
+            m.reset_running_stats()
 
 
 def init_params(cfg: Config, generator: torch.Generator,
@@ -111,14 +187,7 @@ def init_params(cfg: Config, generator: torch.Generator,
     dev = resolve_device(device)
     models = build_models(cfg)
     for net in (models.G, models.P):
-        for m in net.modules():
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
-                init_weight_(m.weight, cfg.init_type, cfg.init_gain,
-                             generator)
-                torch.nn.init.zeros_(m.bias)
-            elif isinstance(m, InstanceNorm):
-                torch.nn.init.ones_(m.weight)
-                torch.nn.init.zeros_(m.bias)
+        _init_net_(net, cfg, generator)
     if cfg.vgg_weights and cfg.vgg_weights != "random":
         if cfg.vgg_width_scale != 1.0:
             raise ValueError("pretrained VGG weights require full width")
@@ -128,6 +197,30 @@ def init_params(cfg: Config, generator: torch.Generator,
     else:
         models.vgg.reset_parameters(generator)
     return Models(*(net.to(dev).eval() for net in models))
+
+
+def init_discriminators(cfg: Config, generator: torch.Generator,
+                        device: DeviceLike = None) -> Discriminators:
+    """netD and netF with weights drawn from `generator` like the
+    generators', in train mode on `device`."""
+    dev = resolve_device(device)
+    nets = build_discriminators(cfg)
+    for net in nets:
+        _init_net_(net, cfg, generator)
+    return Discriminators(*(net.to(dev).train() for net in nets))
+
+
+def create_state(cfg: Config, generator: torch.Generator,
+                 device: DeviceLike = None) -> TrainState:
+    """A fresh TrainState on `device`: G, P and VGG drawn as init_params
+    draws them (so one seed gives serving and training the same
+    generators), then D and F, then four Adam optimisers.  G, P, D and F
+    come back in train mode."""
+    dev = resolve_device(device)
+    check_train_config(cfg)
+    G, P, vgg = init_params(cfg, generator, dev)
+    D, F = init_discriminators(cfg, generator, dev)
+    return create_train_state(cfg, G.train(), P.train(), D, F, vgg)
 
 
 # ---------------------------------------------------------------------------
@@ -178,15 +271,18 @@ class ForwardOut(NamedTuple):
 def two_stage_forward(G: UnetGeneratorIPSR, P: UnetGenerator,
                       gt: torch.Tensor, mask: torch.Tensor,
                       ref_feat: torch.Tensor, flag: torch.Tensor,
-                      attention_impl=None) -> ForwardOut:
-    """Eval-mode two-stage forward on NCHW images: gt [B,3,H,W],
-    mask [B,H,W], ref_feat [B,8ngf,H/8,W/8], flag [B,(H/8)*(W/8)]."""
+                      attention_impl=None,
+                      generator: Optional[torch.Generator] = None
+                      ) -> ForwardOut:
+    """Two-stage forward on NCHW images: gt [B,3,H,W], mask [B,H,W],
+    ref_feat [B,8ngf,H/8,W/8], flag [B,(H/8)*(W/8)].  Train or eval is the
+    networks' own mode; `generator` feeds the dropout in train mode."""
     masked_mean = M.fill_hole_with_mean(gt, mask)
-    fake_P = P(masked_mean)
+    fake_P = P(masked_mean, generator)
     known = M.zero_hole(gt, mask)
     syn = fake_P.detach() * mask[:, None] + known
     middle = torch.cat([syn, known], dim=1)
-    fake_B, taps = G(middle, ref_feat, flag, attention_impl)
+    fake_B, taps = G(middle, ref_feat, flag, attention_impl, generator)
     return ForwardOut(fake_P, fake_B, taps)
 
 
@@ -236,3 +332,106 @@ def make_serving_fn(cfg: Config, device: DeviceLike = None):
         return to_uint8(fake_B)
 
     return serve_fn
+
+
+# ---------------------------------------------------------------------------
+# train step
+# ---------------------------------------------------------------------------
+
+def _apply_grads(opt: torch.optim.Optimizer, params, grads) -> None:
+    for p, g in zip(params, grads):
+        p.grad = g
+    opt.step()
+
+
+def make_train_step(cfg: Config, device: DeviceLike = None):
+    """train_step(state, batch, generator=None) -> (state, metrics): one
+    optimisation step of all four networks, D and F first, then G and P
+    against the updated discriminators.
+
+    batch: {'image', 'ref'}: [B,H,W,3] uint8 (or [-1,1] f32), 'mask':
+    [B,H,W] (uint8 0/1, or f32), numpy or tensors.  `generator` (on
+    `device`) feeds the dropout when cfg.use_dropout.  The state's
+    networks and optimisers are updated in place and the same state comes
+    back with step + 1; each parameter's `.grad` holds the gradient the
+    step applied.  metrics: 0-dim f32 tensors on `device` — G_GAN, G_L1, D,
+    F, cosis, and loss (= G_L1).
+    """
+    dev = resolve_device(device)
+    check_train_config(cfg)
+    impl = check_impl(cfg.attention_impl)
+
+    def train_step(state: TrainState, batch,
+                   generator: Optional[torch.Generator] = None):
+        G, P, D, F, vgg = state.G, state.P, state.D, state.F, state.vgg
+        for net in (G, P, D, F):
+            net.train()
+        gt = normalize_image(_as_tensor(batch["image"], dev)
+                             ).permute(0, 3, 1, 2)
+        ref = normalize_image(_as_tensor(batch["ref"], dev)
+                              ).permute(0, 3, 1, 2)
+        mask = resolve_mask(cfg, normalize_mask(_as_tensor(batch["mask"],
+                                                           dev)))
+        fmask, flag = prepare_masks(cfg, mask)
+        with torch.no_grad():
+            vgg_ref = vgg(ref)
+            vgg_gt = vgg(gt)
+        gt_target = vgg_gt.relu4_3
+
+        # One forward for the whole step: the D phase sees the detached
+        # fake_B, the G phase differentiates through this same graph.
+        fwd = two_stage_forward(G, P, gt, mask, vgg_ref.relu4_3, flag, impl,
+                                generator)
+        fake_B_const = fwd.fake_B.detach()
+        with torch.no_grad():
+            # only relu3_3 of the fake image is consumed (netF's input)
+            fake_feat = vgg(fake_B_const, upto=3).relu3_3
+
+        # ---- D / F phase ----
+        loss_D_img = ra_gan_loss(D(fake_B_const), D(gt), True, cfg.gan_type)
+        loss_F_feat = ra_gan_loss(F(fake_feat), F(vgg_gt.relu3_3), True,
+                                  cfg.gan_type)
+        params_D, params_F = list(D.parameters()), list(F.parameters())
+        # autograd.grad frees the D-phase graph, so the in-place optimiser
+        # steps below invalidate no tensor saved for a later backward.
+        grads = torch.autograd.grad(0.5 * loss_D_img + 0.5 * loss_F_feat,
+                                    params_D + params_F)
+        _apply_grads(state.opt_D, params_D, grads[:len(params_D)])
+        _apply_grads(state.opt_F, params_F, grads[len(params_D):])
+
+        # ---- G / P phase, against the updated discriminators ----
+        # D on the real image and the whole feature branch (VGG of the
+        # detached fake_B) are constants with respect to G and P, so they
+        # run without a graph; autograd.grad on G's and P's parameters
+        # alone leaves no gradient on D and F.  D still runs fake then
+        # real, the order its BatchNorm statistics chain in.
+        pred_fake = D(fwd.fake_B)
+        with torch.no_grad():
+            pred_real = D(gt)
+            loss_G_feat = ra_gan_loss(F(fake_feat), F(vgg_gt.relu3_3), False,
+                                      cfg.gan_type)
+        loss_G_GAN = ra_gan_loss(pred_fake, pred_real, False,
+                                 cfg.gan_type) + loss_G_feat
+        loss_G_L1 = (l1_loss(fwd.fake_B, gt)
+                     + l1_loss(fwd.fake_P, gt)) * cfg.lambda_A
+        loss_G = loss_G_L1 + loss_G_GAN * cfg.gan_weight
+        cos = torch.zeros((), device=dev)
+        if cfg.cosis and not cfg.skip:
+            cos = (inner_cos_loss(fwd.taps["inner_cos"], fmask, gt_target,
+                                  cfg.strength)
+                   + inner_cos_loss(fwd.taps["inner_cos2"], fmask, gt_target,
+                                    cfg.strength))
+            if cfg.faithful_detached_cosis:
+                cos = cos.detach()
+            loss_G = loss_G + cos
+        params_G, params_P = list(G.parameters()), list(P.parameters())
+        grads = torch.autograd.grad(loss_G, params_G + params_P)
+        _apply_grads(state.opt_G, params_G, grads[:len(params_G)])
+        _apply_grads(state.opt_P, params_P, grads[len(params_G):])
+
+        state.step += 1
+        metrics = {"G_GAN": loss_G_GAN, "G_L1": loss_G_L1, "D": loss_D_img,
+                   "F": loss_F_feat, "cosis": cos, "loss": loss_G_L1}
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step

@@ -1,0 +1,65 @@
+"""Loss functions: relativistic-average GAN loss, L1, InnerCos feature MSE
+(counterpart of deepinpainting_tpu/losses.py).
+
+  * `ra_gan_loss(pred_fake, pred_real, target_is_real, gan_type)`: 'lsgan'
+    and 'wgan_gp' select MSE, 'vanilla' BCE.  Discriminator direction
+    (target_is_real=True):
+
+        ( mean((real - mean(fake) - 1)^2)
+        + mean((fake - mean(real) + 1)^2) ) / 2
+
+    and the generator direction flips the signs.
+  * L1 terms: (L1(fake_B, gt) + L1(fake_P, gt)) * lambda_A, the sum taken
+    by the train step.
+  * `inner_cos_loss`: MSE(feat * feat_mask * strength, vgg_gt_relu4_3), the
+    target being the whole unmasked feature map.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _mse(a: torch.Tensor, b: float) -> torch.Tensor:
+    return torch.mean(torch.square(a - b))
+
+
+def _bce_with_labels(pred: torch.Tensor, label: float) -> torch.Tensor:
+    """BCE on probabilities with the relativistic difference clipped into
+    [1e-7, 1 - 1e-7] first: the difference lies in (-1, 1), where BCE is
+    undefined, and the JAX package keeps 'vanilla' usable the same way."""
+    p = torch.clamp(pred, 1e-7, 1 - 1e-7)
+    return -torch.mean(label * torch.log(p) + (1 - label) * torch.log(1 - p))
+
+
+def ra_gan_loss(pred_fake: torch.Tensor, pred_real: torch.Tensor,
+                target_is_real: bool, gan_type: str = "lsgan") -> torch.Tensor:
+    """Relativistic-average GAN loss; argument order (pred_on_fake,
+    pred_on_real, discriminator direction?)."""
+    real_rel = pred_real - torch.mean(pred_fake)
+    fake_rel = pred_fake - torch.mean(pred_real)
+    if gan_type in ("lsgan", "wgan_gp"):
+        if target_is_real:
+            return 0.5 * (_mse(real_rel, 1.0) + _mse(fake_rel, -1.0))
+        return 0.5 * (_mse(real_rel, -1.0) + _mse(fake_rel, 1.0))
+    if gan_type == "vanilla":
+        if target_is_real:
+            return 0.5 * (_bce_with_labels(real_rel, 1.0)
+                          + _bce_with_labels(fake_rel, 0.0))
+        return 0.5 * (_bce_with_labels(real_rel, 0.0)
+                      + _bce_with_labels(fake_rel, 1.0))
+    raise ValueError(f"unknown gan_type {gan_type!r}")
+
+
+def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(a - b))
+
+
+def inner_cos_loss(feat: torch.Tensor, feat_mask: torch.Tensor,
+                   target: torch.Tensor, strength: float = 1.0
+                   ) -> torch.Tensor:
+    """InnerCos feature-consistency MSE.  feat: [B, C, h, w] tap from the
+    generator; feat_mask: [B, h, w] (1 = hole), broadcast over channels;
+    target: [B, C, h, w] VGG relu4_3 of the ground truth."""
+    masked = feat * feat_mask[:, None] * strength
+    return torch.mean(torch.square(masked - target))

@@ -1,11 +1,14 @@
 """Rough-stage U-Net generator netP, pix2pix `unet_256` (counterpart of
 deepinpainting_tpu/models/unet.py), NCHW.
 
-Down = LeakyReLU(0.2) -> Conv4x4 s2 p1 -> InstanceNorm; up = ReLU ->
-ConvT4x4 s2 p1 -> InstanceNorm; the outermost level ends in tanh; skips are
-channel concats [up(x), x], a size mismatch fixed by bilinear resize.
+Down = LeakyReLU(0.2) -> Conv4x4 s2 p1 -> norm; up = ReLU ->
+ConvT4x4 s2 p1 -> norm (InstanceNorm, or BatchNorm with norm='batch'); the
+outermost level ends in tanh; skips are channel concats [up(x), x], a size
+mismatch fixed by bilinear resize.
 Layer attribute names follow the JAX package's flax scope names, and the
 nested blocks are `model.submodule.submodule...`, as flax names them.
+Dropout(0.5) sits in the middle 8ngf blocks when use_dropout is set; it is
+active in train mode only and draws from the generator passed to forward.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.convs import InstanceNorm, bilinear_resize, leaky_relu
+from ..ops.convs import Dropout, bilinear_resize, leaky_relu, make_norm
 
 
 class UnetSkipBlock(nn.Module):
@@ -26,34 +29,35 @@ class UnetSkipBlock(nn.Module):
                  input_nc: Optional[int] = None,
                  submodule: Optional[nn.Module] = None,
                  outermost: bool = False, innermost: bool = False,
-                 use_dropout: bool = False):
+                 use_dropout: bool = False, norm: str = "instance"):
         super().__init__()
         input_nc = outer_nc if input_nc is None else input_nc
         self.outermost, self.innermost = outermost, innermost
         self.down_conv = nn.Conv2d(input_nc, inner_nc, 4, 2, 1)
         if not (outermost or innermost):
-            self.down_norm = InstanceNorm(inner_nc)
+            self.down_norm = make_norm(norm, inner_nc)
         self.submodule = submodule
         up_in = inner_nc if innermost else 2 * inner_nc
         self.up_conv = nn.ConvTranspose2d(up_in, outer_nc, 4, 2, 1)
         if not outermost:
-            self.up_norm = InstanceNorm(outer_nc)
-        self.dropout = (nn.Dropout(0.5) if use_dropout and not outermost
+            self.up_norm = make_norm(norm, outer_nc)
+        self.dropout = (Dropout(0.5) if use_dropout and not outermost
                         else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         y = x if self.outermost else leaky_relu(x, 0.2)
         y = self.down_conv(y)
         if not (self.outermost or self.innermost):
             y = self.down_norm(y)
         if self.submodule is not None:
-            y = self.submodule(y)
+            y = self.submodule(y, generator)
         y = self.up_conv(F.relu(y))
         if self.outermost:
             return torch.tanh(y)
         y = self.up_norm(y)
         if self.dropout is not None:
-            y = self.dropout(y)
+            y = self.dropout(y, generator)
         if y.shape[2:] != x.shape[2:]:
             y = bilinear_resize(y, x.shape[2], x.shape[3])
         return torch.cat([y, x], dim=1)
@@ -65,18 +69,21 @@ class UnetGenerator(nn.Module):
 
     def __init__(self, input_nc: int = 3, output_nc: int = 3,
                  num_downs: int = 8, ngf: int = 64,
-                 use_dropout: bool = False):
+                 use_dropout: bool = False, norm: str = "instance"):
         super().__init__()
-        block = UnetSkipBlock(ngf * 8, ngf * 8, innermost=True)
+        block = UnetSkipBlock(ngf * 8, ngf * 8, innermost=True, norm=norm)
         for _ in range(num_downs - 5):
             block = UnetSkipBlock(ngf * 8, ngf * 8, submodule=block,
-                                  use_dropout=use_dropout)
-        block = UnetSkipBlock(ngf * 4, ngf * 8, submodule=block)
-        block = UnetSkipBlock(ngf * 2, ngf * 4, submodule=block)
-        block = UnetSkipBlock(ngf, ngf * 2, submodule=block)
+                                  use_dropout=use_dropout, norm=norm)
+        block = UnetSkipBlock(ngf * 4, ngf * 8, submodule=block, norm=norm)
+        block = UnetSkipBlock(ngf * 2, ngf * 4, submodule=block, norm=norm)
+        block = UnetSkipBlock(ngf, ngf * 2, submodule=block, norm=norm)
         self.model = UnetSkipBlock(output_nc, ngf, input_nc=input_nc,
-                                   submodule=block, outermost=True)
+                                   submodule=block, outermost=True,
+                                   norm=norm)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, input_nc, H, W] in [-1, 1] -> [B, output_nc, H, W]."""
-        return self.model(x)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: [B, input_nc, H, W] in [-1, 1] -> [B, output_nc, H, W].
+        generator: the dropout's, used in train mode only."""
+        return self.model(x, generator)

@@ -13,7 +13,11 @@ deepinpainting_tpu/models/unet_ipsr.py), NCHW.
     [..., Conv3x3 256->512, IPSR attention, InnerCos tap, IN] and the up
     path starts with the InnerCos2 tap on the skip concat
 
-Layer attribute names follow the JAX package's flax scope names.
+IN is InstanceNorm, or BatchNorm with norm='batch'.  Layer attribute
+names follow the JAX package's flax scope names.  The
+attention level carries triple_weight and truncate_backward for the
+attention's backward (ops/attention.py); dropout is active in train mode
+only and draws from the generator passed to forward.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import ipsr_attention_batched
-from ..ops.convs import InstanceNorm, bilinear_resize, leaky_relu
+from ..ops.convs import Dropout, bilinear_resize, leaky_relu, make_norm
 
 
 class UnetBlock3(nn.Module):
@@ -37,40 +41,43 @@ class UnetBlock3(nn.Module):
                  submodule: Optional[nn.Module] = None,
                  outermost: bool = False, innermost: bool = False,
                  use_dropout: bool = False, with_attention: bool = False,
-                 known_replacement: bool = True):
+                 known_replacement: bool = True, triple_weight: float = 1.0,
+                 truncate_backward: bool = True, norm: str = "instance"):
         super().__init__()
         input_nc = outer_nc if input_nc is None else input_nc
         self.inner_nc = inner_nc
         self.outermost, self.innermost = outermost, innermost
         self.with_attention = with_attention
         self.known_replacement = known_replacement
+        self.triple_weight = triple_weight
+        self.truncate_backward = truncate_backward
         if outermost:
             self.down_conv3 = nn.Conv2d(input_nc, inner_nc, 3, 1, 1)
         else:
             self.down_dilconv = nn.Conv2d(input_nc, input_nc, 4, 2, 3,
                                           dilation=2)
             if not innermost:
-                self.down_norm = InstanceNorm(input_nc)
+                self.down_norm = make_norm(norm, input_nc)
                 self.down_conv3 = nn.Conv2d(input_nc, inner_nc, 3, 1, 1)
-                self.down_norm3 = InstanceNorm(inner_nc)
+                self.down_norm3 = make_norm(norm, inner_nc)
         self.submodule = submodule
         if outermost:
             self.up_conv3 = nn.ConvTranspose2d(2 * inner_nc, outer_nc, 3, 1, 1)
         elif innermost:
             self.up_conv = nn.ConvTranspose2d(input_nc, outer_nc, 4, 2, 1)
-            self.up_norm = InstanceNorm(outer_nc)
+            self.up_norm = make_norm(norm, outer_nc)
         else:
             self.up_conv3 = nn.ConvTranspose2d(2 * inner_nc, outer_nc, 3, 1, 1)
-            self.up_norm3 = InstanceNorm(outer_nc)
+            self.up_norm3 = make_norm(norm, outer_nc)
             self.up_conv = nn.ConvTranspose2d(outer_nc, outer_nc, 4, 2, 1)
-            self.up_norm = InstanceNorm(outer_nc)
-        self.dropout = (nn.Dropout(0.5) if use_dropout and not outermost
+            self.up_norm = make_norm(norm, outer_nc)
+        self.dropout = (Dropout(0.5) if use_dropout and not outermost
                         else None)
 
     def forward(self, x: torch.Tensor, aux: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """aux carries {'ref_feat': [B,C,h,w], 'flag': [B,h*w],
-        'impl': attention_impl} for the attention level; returns
+        'impl': attention_impl, 'generator': the dropout's}; returns
         (output, taps) with the InnerCos features."""
         taps: Dict[str, torch.Tensor] = {}
         # ---- down ----
@@ -83,6 +90,8 @@ class UnetBlock3(nn.Module):
                 if self.with_attention:
                     y = ipsr_attention_batched(
                         y, aux["ref_feat"].to(y.dtype), aux["flag"],
+                        triple_weight=self.triple_weight,
+                        truncate_backward=self.truncate_backward,
                         known_replacement=self.known_replacement,
                         impl=aux.get("impl"))
                     taps["inner_cos"] = y   # InnerCos tap, pre-norm
@@ -102,7 +111,7 @@ class UnetBlock3(nn.Module):
             y = self.up_norm3(self.up_conv3(F.relu(y)))
             y = self.up_norm(self.up_conv(F.relu(y)))
         if self.dropout is not None:
-            y = self.dropout(y)
+            y = self.dropout(y, aux.get("generator"))
         if y.shape[2:] != x.shape[2:]:
             y = bilinear_resize(y, x.shape[2], x.shape[3])
         return torch.cat([y, x], dim=1), taps
@@ -115,31 +124,38 @@ class UnetGeneratorIPSR(nn.Module):
 
     def __init__(self, input_nc: int = 6, output_nc: int = 3,
                  num_downs: int = 8, ngf: int = 64,
-                 use_dropout: bool = False, known_replacement: bool = True):
+                 use_dropout: bool = False, known_replacement: bool = True,
+                 triple_weight: float = 1.0, truncate_backward: bool = True,
+                 norm: str = "instance"):
         super().__init__()
-        block = UnetBlock3(ngf * 8, ngf * 8, innermost=True)
+        block = UnetBlock3(ngf * 8, ngf * 8, innermost=True, norm=norm)
         for _ in range(num_downs - 5):
             block = UnetBlock3(ngf * 8, ngf * 8, submodule=block,
-                               use_dropout=use_dropout)
+                               use_dropout=use_dropout, norm=norm)
         block = UnetBlock3(ngf * 8, ngf * 8, submodule=block,
-                           use_dropout=use_dropout)
+                           use_dropout=use_dropout, norm=norm)
         block = UnetBlock3(ngf * 4, ngf * 8, submodule=block,
                            with_attention=True,
-                           known_replacement=known_replacement)
-        block = UnetBlock3(ngf * 2, ngf * 4, submodule=block)
-        block = UnetBlock3(ngf, ngf * 2, submodule=block)
+                           known_replacement=known_replacement,
+                           triple_weight=triple_weight,
+                           truncate_backward=truncate_backward, norm=norm)
+        block = UnetBlock3(ngf * 2, ngf * 4, submodule=block, norm=norm)
+        block = UnetBlock3(ngf, ngf * 2, submodule=block, norm=norm)
         self.model = UnetBlock3(output_nc, ngf, input_nc=input_nc,
-                                submodule=block, outermost=True)
+                                submodule=block, outermost=True, norm=norm)
 
     def forward(self, x: torch.Tensor, ref_feat: torch.Tensor,
-                flag: torch.Tensor, attention_impl: Optional[str] = None
+                flag: torch.Tensor, attention_impl: Optional[str] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """x: [B,6,H,W] (coarse composite ++ zero-holed input); ref_feat:
         [B,8ngf,H/8,W/8] VGG relu4_3 of the reference; flag [B,(H/8)*(W/8)].
         attention_impl: 'cuda' (default; also 'pallas') or 'torch' (also
-        'lax'), see ops/attention.py.
+        'lax'), see ops/attention.py.  generator: the dropout's, used in
+        train mode only.
 
         Returns (out [B,3,H,W] — linear, no tanh; taps {'inner_cos',
         'inner_cos2'} [B,8ngf,H/8,W/8])."""
         return self.model(x, {"ref_feat": ref_feat, "flag": flag,
-                              "impl": attention_impl})
+                              "impl": attention_impl,
+                              "generator": generator})

@@ -10,12 +10,14 @@ activations except the last:
     relu3_3 = pool3 output, 256ch, H/8
     relu4_3 = conv4_3+ReLU, 512ch, H/8   (attention ref)
 
-Inputs are [-1,1] images, not ImageNet-normalised.  The extractor is frozen.
+Inputs are [-1,1] images, not ImageNet-normalised.  The extractor is
+frozen.  `forward(x, upto=3)` stops after relu3_3 (relu4_3 comes back
+None): the train step needs no more of the fake image.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -28,7 +30,7 @@ class VggFeatures(NamedTuple):
     relu1_2: torch.Tensor
     relu2_2: torch.Tensor
     relu3_3: torch.Tensor
-    relu4_3: torch.Tensor
+    relu4_3: Optional[torch.Tensor]
 
 
 # (name, out_channels) per conv, grouped into the four slices.
@@ -62,10 +64,15 @@ class Vgg16(nn.Module):
                 he_normal_(conv.weight, generator)
                 nn.init.zeros_(conv.bias)
 
-    def forward(self, x: torch.Tensor) -> VggFeatures:
+    def forward(self, x: torch.Tensor, upto: int = 4) -> VggFeatures:
+        """upto < 4 computes the first `upto` slices only; the later
+        entries are None."""
         feats = []
         y = x
         for si, convs in enumerate(SLICES):
+            if si >= upto:
+                feats.append(None)
+                continue
             for name, _ in convs:
                 y = F.relu(getattr(self, name)(y))
             if si < 3:

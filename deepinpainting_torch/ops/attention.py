@@ -1,5 +1,6 @@
-"""IPSR coherent-semantic shift attention, inference primal
-(counterpart of deepinpainting_tpu/ops/attention.py and the pre-stage of
+"""IPSR coherent-semantic shift attention: the inference primal, and the
+training forward with its custom backward (counterpart of
+deepinpainting_tpu/ops/attention.py and the pre-stage of
 ops/attention_pallas.py).
 
 Given the decoder feature `feat` and the VGG relu4_3 feature of the
@@ -21,6 +22,22 @@ Steps 1-3 (`prep`) are one large product plus reductions and stay plain
 PyTorch, as the JAX package leaves them to XLA.  Step 4 is the sequential
 part: on a CUDA tensor it is the hand-written kernel in
 ops/attention_cuda.py, on a CPU tensor `scan_stream_reference` below.
+
+Inference needs nothing more: the scan's `out` is the result.  Under
+differentiation the forward also materialises the attention matrix
+
+  5. kbar[q, :] = a_q*row_prev + b_q*onehot(ind_q) on masked q (the row
+     carry advances), onehot(ind_q) on unmasked q (`kbar_build`: the second
+     hand-written kernel on a CUDA tensor, `kbar_build_reference` on a CPU
+     one), from the (a, b) the scan emitted;
+  6. decodes out = kbar @ P (a batched matrix product, left to the library
+     as the JAX package leaves it to XLA; it equals the scan's `out` up to
+     rounding);
+
+and the backward is the reference's: grad_feat = g + triple_weight * K^T g
+with K = trunc(kbar) (the reference stores the float rows into an integer
+tensor, so fractional weights mostly vanish) or K = kbar when
+truncate_backward is off.  `ref` and `flag` get no gradient.
 """
 
 from __future__ import annotations
@@ -123,21 +140,123 @@ def scan_stream(flag: torch.Tensor, vmax: torch.Tensor, pn: torch.Tensor,
     return scan_stream_reference(flag, vmax, pn, known)
 
 
-def ipsr_attention_batched(feat: torch.Tensor, ref: torch.Tensor,
+def kbar_build_reference(flag: torch.Tensor, ind: torch.Tensor,
+                         a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch attention-matrix recurrence, the kbar kernel's plain
+    version.
+
+    flag/a/b: [B, N] f32; ind: [B, N] integer.  A Python loop over the N
+    rows, vectorised over B and the N columns.  Returns kbar [B, N, N] f32.
+
+    The step is three separately rounded f32 operations (two products, one
+    sum), never a fused multiply-add, and the kernel does the same: with no
+    reduction anywhere the two agree bit for bit, which `trunc` in the
+    faithful backward needs (see csrc/kbar_build.cu).
+    """
+    bsz, n = flag.shape
+    kbar = torch.empty((bsz, n, n), dtype=torch.float32, device=flag.device)
+    cols = torch.arange(n, device=flag.device)
+    row = torch.zeros((bsz, n), dtype=torch.float32, device=flag.device)
+    for q in range(n):
+        onehot = (cols == ind[:, q, None]).to(torch.float32)
+        row = a[:, q, None] * row + b[:, q, None] * onehot
+        kbar[:, q] = torch.where(flag[:, q, None] > 0, row, onehot)
+    return kbar
+
+
+def kbar_build(flag: torch.Tensor, ind: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """The attention matrix on the tensors' device: the CUDA kernel for
+    CUDA tensors (which launches or raises), the plain version for CPU
+    ones."""
+    if flag.is_cuda:
+        return attention_cuda.kbar_build_cuda(flag, ind, a, b)
+    return kbar_build_reference(flag, ind, a, b)
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """NCHW [B, C, H, W] -> patch rows [B, N, C] (a view)."""
+    return t.flatten(2).transpose(1, 2)
+
+
+def attention_core_batched(feat: torch.Tensor, ref: torch.Tensor,
                            flag: torch.Tensor, *,
                            known_replacement: bool = True,
-                           impl: Optional[str] = None) -> torch.Tensor:
-    """Batched inference primal.  feat/ref: NCHW [B, C, H, W]; flag
-    [B, H*W] (1 = masked).  Returns NCHW [B, C, H, W] in feat's dtype.
+                           impl: Optional[str] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training-path forward (counterpart of the JAX package's
+    attention_core_pallas_batched).  feat/ref: NCHW [B, C, H, W]; flag
+    [B, H*W].  Returns (out NCHW in feat's dtype, kbar [B, N, N] f32).
 
-    impl 'cuda' (default, also 'pallas') runs the recurrence on the
-    tensors' device through `scan_stream`; 'torch' (also 'lax') forces the
-    plain version, which lets the two be compared on the card.
+    prep -> scan for (a, b) -> kbar -> out = kbar @ P.  impl as in
+    ipsr_attention_batched: 'cuda' takes both recurrences by the tensors'
+    device, 'torch' forces both plain versions.
     """
     bsz, c, h, w = feat.shape
-    rows = lambda t: t.flatten(2).transpose(1, 2)       # [B, N, C]
+    flag = flag.to(torch.float32).contiguous()
+    P, Pn, ind, vmax, known = prep(_rows(feat), _rows(ref), flag,
+                                   known_replacement)
+    kernels = check_impl(impl) == "cuda"
+    scan = scan_stream if kernels else scan_stream_reference
+    build = kbar_build if kernels else kbar_build_reference
+    _, a, b = scan(flag, vmax.contiguous(), Pn.contiguous(),
+                   known.contiguous())
+    kbar = build(flag, ind.contiguous(), a, b)
+    out = torch.bmm(kbar, P)                            # [B, pos, C]
+    return out.transpose(1, 2).reshape(bsz, c, h, w).to(feat.dtype), kbar
+
+
+class _IpsrAttention(torch.autograd.Function):
+    """The training forward with the reference's backward (counterpart of
+    the JAX package's custom_vjp rules _batched_pallas_fwd / _bwd)."""
+
+    @staticmethod
+    def forward(ctx, feat, ref, flag, triple_weight, truncate_backward,
+                known_replacement, impl):
+        out, kbar = attention_core_batched(
+            feat, ref, flag, known_replacement=known_replacement, impl=impl)
+        ctx.save_for_backward(torch.trunc(kbar) if truncate_backward
+                              else kbar)
+        ctx.triple_weight = triple_weight
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        K, = ctx.saved_tensors                          # [B, pos q, patch p]
+        # grad at patch p: g[p] + tw * sum_q K[q, p] * g[q]; on NCHW that is
+        # [B, C, q] @ K[B, q, p], so no transpose is materialised.
+        extra = torch.bmm(g.flatten(2).to(torch.float32), K)
+        grad = g + ctx.triple_weight * extra.reshape(g.shape).to(g.dtype)
+        return grad, None, None, None, None, None, None
+
+
+def ipsr_attention_batched(feat: torch.Tensor, ref: torch.Tensor,
+                           flag: torch.Tensor, *,
+                           triple_weight: float = 1.0,
+                           truncate_backward: bool = True,
+                           known_replacement: bool = True,
+                           impl: Optional[str] = None) -> torch.Tensor:
+    """Batched IPSR attention.  feat/ref: NCHW [B, C, H, W]; flag
+    [B, H*W] (1 = masked).  Returns NCHW [B, C, H, W] in feat's dtype.
+
+    impl 'cuda' (default, also 'pallas') runs the recurrences on the
+    tensors' device through `scan_stream` and `kbar_build`; 'torch' (also
+    'lax') forces the plain versions, which lets the two be compared on the
+    card.
+
+    Where no gradient is wanted (grad mode off, or `feat` does not require
+    one) this is the kbar-free primal: the scan's `out` is the result and
+    no [N, N] matrix is built.  Otherwise the forward is
+    `attention_core_batched` and the backward g + triple_weight * K^T g,
+    K = trunc(kbar) if truncate_backward else kbar.
+    """
+    if torch.is_grad_enabled() and feat.requires_grad:
+        return _IpsrAttention.apply(feat, ref, flag, triple_weight,
+                                    truncate_backward, known_replacement,
+                                    impl)
+    bsz, c, h, w = feat.shape
     flag = flag.to(torch.float32)
-    _, Pn, _, vmax, known = prep(rows(feat), rows(ref), flag,
+    _, Pn, _, vmax, known = prep(_rows(feat), _rows(ref), flag,
                                  known_replacement)
     scan = (scan_stream if check_impl(impl) == "cuda"
             else scan_stream_reference)

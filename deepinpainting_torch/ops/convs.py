@@ -11,18 +11,22 @@ here they are the native layers on NCHW:
 
 Weight init draws the same distributions as the JAX package's make_init
 (not the same bits: torch and JAX generators differ).  Biases start at 0,
-InstanceNorm affine at (1, 0).
+InstanceNorm affine at (1, 0), BatchNorm scale from N(1, gain).  `Dropout`
+draws its keep mask from an explicit torch.Generator, so a training run
+repeats from a seed.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
+NORMS = ("instance", "batch")
 
 
 def instance_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -47,6 +51,42 @@ class InstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return instance_norm(x, self.weight, self.bias, self.eps)
+
+
+def make_norm(norm: str, channels: int) -> nn.Module:
+    """Norm-layer factory (Config.norm).  'instance' is InstanceNorm above.
+    'batch' is nn.BatchNorm2d at its defaults (eps 1e-5, momentum 0.1),
+    which is what the JAX package's TorchBatchNorm reproduces: train mode
+    normalises with the biased batch variance over (N, H, W) and tracks the
+    unbiased one, eval mode uses the running statistics."""
+    if norm == "instance":
+        return InstanceNorm(channels)
+    if norm == "batch":
+        return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    raise NotImplementedError(
+        f"normalization layer [{norm}] is not found (supported: "
+        f"{', '.join(NORMS)})")
+
+
+class Dropout(nn.Module):
+    """Inverted dropout, active in train mode only: each element is kept
+    with probability 1 - p and scaled by 1 / (1 - p).  The keep mask comes
+    from `generator`, a torch.Generator on x's device (nn.Dropout takes
+    none); None draws from that device's default generator."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout probability must be in [0, 1), got {p}")
+        self.p = p
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=torch.float32) >= self.p
+        return x * keep.to(x.dtype) * (1.0 / (1.0 - self.p))
 
 
 def bilinear_resize(x: torch.Tensor, height: int, width: int) -> torch.Tensor:

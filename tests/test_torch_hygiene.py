@@ -38,6 +38,10 @@ def test_import_loads_no_jax():
         "import deepinpainting_torch.serve.app, deepinpainting_torch._build\n"
         "import deepinpainting_torch.convert.jax_bridge\n"
         "import deepinpainting_torch.ops.attention_cuda\n"
+        "import deepinpainting_torch.losses\n"
+        "import deepinpainting_torch.engine.state\n"
+        "import deepinpainting_torch.engine.schedules\n"
+        "import deepinpainting_torch.models.discriminators\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -70,6 +74,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card):
         lambda: resolve_device(),
         lambda: resolve_device("cuda"),
         lambda: TI.init_params(TINY, gen),
+        lambda: TI.init_discriminators(TINY, gen),
+        lambda: TI.create_state(TINY, gen),
+        lambda: TI.make_train_step(TINY),
         lambda: TI.make_inference_fn(TINY),
         lambda: TI.make_serving_fn(TINY),
         lambda: InferenceSession(TINY),
@@ -85,16 +92,31 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card):
 
 
 def test_unported_options_are_refused():
-    for kw in (dict(norm="batch"), dict(dtype="bfloat16"),
+    for kw in (dict(dtype="bfloat16"),
                dict(quant="int8"), dict(pack_out=True),
                dict(pack_small_cin=True), dict(norm="group"),
                dict(init_type="uniform"), dict(which_model_netG="unet_256")):
         with pytest.raises(NotImplementedError):
             TI.build_models(TINY.replace(**kw))
+        with pytest.raises(NotImplementedError):
+            TI.build_discriminators(TINY.replace(**kw))
     for kw in (dict(fine_size=32), dict(ngf=16),
                dict(attention_impl="xla")):
         with pytest.raises(ValueError):
             TI.build_models(TINY.replace(**kw))
+    # training options left for later, each refused by its name
+    gen = torch.Generator().manual_seed(0)
+    for kw in (dict(grad_accum=2), dict(remat=True), dict(debug_nan=True),
+               dict(dtype="bfloat16"), dict(quant="int8")):
+        name = next(iter(kw))
+        with pytest.raises(NotImplementedError, match=name):
+            TI.make_train_step(TINY.replace(**kw), "cpu")
+        with pytest.raises(NotImplementedError, match=name):
+            TI.create_state(TINY.replace(**kw), gen, "cpu")
+    with pytest.raises(ValueError, match="gan_type"):
+        TI.make_train_step(TINY.replace(gan_type="hinge"), "cpu")
+    # norm='batch' is ported: it builds
+    TI.build_models(TINY.replace(norm="batch"))
 
 
 def _run_smoke(cwd):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.
 
 Every test here needs a CUDA card: it carries the `gpu` marker and skips
 where none is present.  The file imports no JAX, so it also runs where JAX
@@ -71,6 +72,112 @@ def test_kernel_refuses_bad_inputs(cuda):
         TAC.scan_stream_cuda(flag, vmax,
                              pn.transpose(1, 2).contiguous().transpose(1, 2),
                              known)
+
+
+def _kbar_inputs(b, n, seed, dtype=torch.int64):
+    """(flag, ind, a, b) with masked runs, repeated best patches (entries
+    a*1 + b*1 next to 1) and coefficients outside [0, 1]."""
+    g = torch.Generator().manual_seed(seed)
+    flag = (torch.rand(b, n, generator=g) < 0.3).float()
+    ind = torch.randint(0, n, (b, n), generator=g)
+    ind[:, 1::2] = torch.where(torch.rand(b, n // 2, generator=g) < 0.5,
+                               ind[:, 0:2 * (n // 2):2], ind[:, 1::2])
+    a = torch.where(flag > 0, torch.rand(b, n, generator=g) * 1.4 - 0.2,
+                    torch.ones(b, n))
+    return flag, ind.to(dtype), a, torch.where(flag > 0, 1 - a,
+                                               torch.zeros(b, n))
+
+
+@pytest.mark.parametrize("b,n,dtype", [
+    (8, 1024, torch.int64), (8, 1024, torch.int32), (1, 1024, torch.int64),
+    (3, 100, torch.int64), (2, 1, torch.int32), (2, 4096, torch.int64)])
+def test_kbar_kernel_equals_plain_bit_for_bit(cuda, b, n, dtype):
+    """No reduction anywhere and no FMA contraction in the kernel: the two
+    must agree exactly, also where N is no multiple of the block's 64
+    columns or of the 256-row tile."""
+    args = [t.to(cuda) for t in _kbar_inputs(b, n, seed=n + b, dtype=dtype)]
+    before = TAC.kbar_launches
+    got = TAC.kbar_build_cuda(*args)
+    want = TA.kbar_build_reference(*args)
+    torch.cuda.synchronize()
+    assert TAC.kbar_launches == before + 1
+    assert got.shape == (b, n, n) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert torch.equal(got.trunc(), want.trunc())
+    um = args[0] == 0
+    onehot = torch.nn.functional.one_hot(args[1][um].long(), n).float()
+    assert torch.equal(got[um], onehot)
+
+
+def test_kbar_kernel_refuses_bad_inputs(cuda):
+    flag, ind, a, b = (t.to(cuda) for t in _kbar_inputs(2, 64, seed=0))
+    with pytest.raises(ValueError):
+        TAC.kbar_build_cuda(flag, ind.float(), a, b)
+    with pytest.raises(ValueError):
+        TAC.kbar_build_cuda(flag.double(), ind, a, b)
+    with pytest.raises(ValueError):
+        TAC.kbar_build_cuda(flag, ind, a[:, :32], b)
+    with pytest.raises(ValueError):
+        TAC.kbar_build_cuda(flag, ind, a.t().contiguous().t(), b)
+    with pytest.raises(ValueError):
+        TAC.kbar_build_cuda(flag, ind.cpu(), a, b)
+
+
+@pytest.mark.parametrize("truncate_backward", [True, False])
+def test_attention_function_on_card_matches_plain(cuda, truncate_backward):
+    """The training forward and its backward through both kernels against
+    the same Function through the plain versions, short chains."""
+    rng = np.random.default_rng(3)
+    feat = torch.from_numpy(rng.standard_normal((2, 64, 16, 16))
+                            .astype(np.float32)).to(cuda)
+    ref = torch.from_numpy(np.abs(rng.standard_normal((2, 64, 16, 16)))
+                           .astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.standard_normal((2, 64, 16, 16))
+                         .astype(np.float32)).to(cuda)
+    flag = torch.zeros(2, 256, device=cuda)
+    flag[:, 40:43] = 1
+    flag[:, 200:203] = 1
+    res = {}
+    before = (TAC.launches, TAC.kbar_launches)
+    for impl in ("cuda", "torch"):
+        x = feat.clone().requires_grad_(True)
+        out = TA.ipsr_attention_batched(x, ref, flag, triple_weight=0.5,
+                                        truncate_backward=truncate_backward,
+                                        impl=impl)
+        out.backward(g)
+        res[impl] = (out.detach(), x.grad)
+    assert (TAC.launches, TAC.kbar_launches) == (before[0] + 1, before[1] + 1)
+    assert (res["cuda"][0] - res["torch"][0]).abs().max().item() <= 1e-5
+    assert (res["cuda"][1] - res["torch"][1]).abs().max().item() <= 1e-5
+
+
+def test_tiny_train_step_on_card(cuda):
+    """Two steps at the tiny config through both kernels: finite losses,
+    one launch of each kernel a step, and the first step's losses within
+    1e-3 of the same step through the plain versions."""
+    cfg = Config(fine_size=64, ngf=8, ndf=8, vgg_width_scale=1 / 8,
+                 batch_size=2)
+    rng = np.random.default_rng(2)
+    batch = {"image": rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8),
+             "ref": rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8),
+             "mask": np.zeros((2, 64, 64), np.uint8)}
+    batch["mask"][:, 16:28, 32:44] = 1
+    losses = {}
+    for impl in ("cuda", "torch"):
+        icfg = cfg.replace(attention_impl=impl)
+        state = TI.create_state(icfg, torch.Generator().manual_seed(0), cuda)
+        step = TI.make_train_step(icfg, cuda)
+        before = (TAC.launches, TAC.kbar_launches)
+        _, m1 = step(state, batch)
+        _, m2 = step(state, batch)
+        n = 2 if impl == "cuda" else 0
+        assert (TAC.launches, TAC.kbar_launches) == (before[0] + n,
+                                                     before[1] + n)
+        assert state.step == 2
+        assert all(torch.isfinite(v) for v in m2.values())
+        losses[impl] = {k: v.item() for k, v in m1.items()}
+    for k, v in losses["torch"].items():
+        assert abs(losses["cuda"][k] - v) <= 1e-3 * max(abs(v), 1e-12), k
 
 
 def test_tiny_serving_on_card_matches_cpu(cuda):
