@@ -10,7 +10,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the measured chaos envelope, with the structural invariants of
      unmasked rows; the kbar kernel bit for bit on the same cases; then
      the attention's autograd Function with the kernels against the same
-     Function with the plain versions, output and gradient;
+     Function with the plain versions, output and gradient; then both
+     kernels on the cases their designs make special (no row masked, every
+     row, the first row, a hole per sample, ragged N, narrow and wide C,
+     more samples than SMs);
   3. the serving path: full-width 256 px serving (Config() defaults,
      weights from a seed) through InferenceSession, single and coalesced
      requests, with the kernels' launch counts read around it;
@@ -21,8 +24,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      trained generators then serve a request; a few more steps for the
      timing and a profile; one step with the kernels against the same step
      with the plain versions;
-  6. numbers: kernel and plain times, bounds, serving latency/throughput,
-     train-step time and peak memory.
+  6. numbers: kernel times (the median of single launches, and the time a
+     launch of 20 back to back), plain times, bounds, the scan's time a
+     masked step, serving latency/throughput, train-step time and peak
+     memory.
 Three lines end the output, each on its own: a JSON object with a `kernels`
 list, the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -87,6 +92,27 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cuda_ms_back_to_back(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device time a call when `launches` calls run back to back: one pair
+    of CUDA events around them, median of `reps`, in ms.  The device first
+    spins ~2 ms so that the host has queued every call before the first
+    one starts, and the events see the device's time, not the host's."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(3_500_000)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -334,6 +360,63 @@ def main() -> int:
             check(r["d_out_mean"] <= ENVELOPE_K * max(r["chaos_mean"], 1e-2),
                   f"{name}: mean divergence outside {ENVELOPE_K}x envelope")
 
+    # what the designs make special: the chain runs over the masked rows
+    # only, other blocks copy or fill the rest.  Non-negative pn and known
+    # keep (a, b) in (0, 1), so every chain stays within the direct limit.
+    def special_flag(kind, b, n):
+        flag = torch.zeros(b, n)
+        if kind == "every row":
+            flag[:] = 1
+        elif kind == "first row":
+            flag[:, 0] = 1
+            flag[:, n // 2:n // 2 + 5] = 1
+        elif kind == "hole per sample":       # sample 0 has no masked row
+            for i in range(b):
+                flag[i, (7 * i) % n:(7 * i) % n + 3 * i] = 1
+        elif kind == "scattered":
+            flag = (torch.rand(b, n, generator=torch.Generator()
+                               .manual_seed(n)) < 0.2).float()
+        return flag.to(dev)
+
+    special = [("no row", 2, 1024, SCAN_C), ("every row", 2, 1024, SCAN_C),
+               ("first row", 2, 1024, SCAN_C),
+               ("hole per sample", 5, 1024, SCAN_C),
+               ("scattered", 2, 48, SCAN_C), ("scattered", 1, 4096, SCAN_C),
+               ("scattered", 3, 1024, 64), ("scattered", 2, 512, 1024),
+               ("hole per sample", 200, 256, 128)]
+    for kind, b, n, c in special:
+        rng = np.random.default_rng(n + c)
+        draw = lambda *shape: torch.from_numpy(np.abs(rng.standard_normal(
+            shape)).astype(np.float32)).to(dev)
+        pn = draw(b, n, c)
+        pn = (pn / pn.norm(dim=2, keepdim=True)).contiguous()
+        known, vmax = draw(b, n, c), draw(b, n) + 0.5
+        flag = special_flag(kind, b, n)
+        ind = torch.from_numpy(rng.integers(0, n, (b, n))).to(dev)
+        got = TAC.scan_stream_cuda(flag, vmax, pn, known)
+        kgot = TAC.kbar_build_cuda(flag, ind, got[1], got[2])
+        torch.cuda.synchronize()
+        want = TA.scan_stream_reference(flag, vmax, pn, known)
+        kwant = TA.kbar_build_reference(flag, ind, got[1], got[2])
+        d = max((g - w).abs().max().item() for g, w in zip(got, want))
+        um = flag == 0
+        struct = bool(torch.equal(got[0][um], known[um])
+                      and bool((got[1][um] == 1).all())
+                      and bool((got[2][um] == 0).all()))
+        k_equal = (torch.equal(kgot, kwant)
+                   and torch.equal(kgot.trunc(), kwant.trunc())
+                   and torch.equal(kgot, TAC.kbar_build_cuda(
+                       flag, ind.int(), got[1], got[2])))
+        log(f"phase 2 special case {kind} (B={b}, N={n}, C={c}, masked "
+            f"{int(flag.sum().item())}): scan kernel vs plain {d:.3e} (limit "
+            f"{DIRECT_TOL}), structure={'exact' if struct else 'BROKEN'}; "
+            f"kbar bit for bit={k_equal}")
+        check(d <= DIRECT_TOL and struct, f"{kind}: scan kernel vs plain")
+        check(k_equal, f"{kind}: kbar kernel must equal its plain version")
+        max_abs_err = max(max_abs_err, d)
+    # nothing of phase 2 stays allocated under phase 5's peak-memory figure
+    del pn, known, vmax, flag, ind, got, kgot, want, kwant, um
+
     # ---- phase 3: the main path, full-width 256 px serving ----------------
     cfg = Config()
     s = cfg.fine_size
@@ -567,29 +650,37 @@ def main() -> int:
         args = scan_args(feat, refr, flag, True)
         bound = scan_bound(flag, SCAN_C)
         k_ms = cuda_ms(lambda: TAC.scan_stream_cuda(*args), reps=50)
+        k_b2b = cuda_ms_back_to_back(lambda: TAC.scan_stream_cuda(*args))
         p_ms = cuda_ms(lambda: TA.scan_stream_reference(*args), reps=20,
                        warmup=1)
-        timings[b] = dict(ms=k_ms, plain_ms=p_ms, **bound)
+        timings[b] = dict(ms=k_b2b, single_ms=k_ms, plain_ms=p_ms, **bound)
+        m = bound["masked"] // b          # the chain of one sample
         log(f"phase 6 scan_stream B={b} N=1024 C={SCAN_C} masked "
-            f"{bound['masked']} rows: kernel {k_ms:.4f} ms, plain "
+            f"{bound['masked']} rows: kernel {k_ms:.4f} ms single launch, "
+            f"{k_b2b:.4f} ms a launch back to back, plain "
             f"{p_ms:.2f} ms, bound {bound['bound_ms']:.5f} ms "
             f"({bound['bound_by']}: {bound['bytes']} B, {bound['ops']} ops), "
-            f"share {bound['bound_ms'] / k_ms:.2%}, library call: none  "
-            f"[{card}]")
+            f"share {bound['bound_ms'] / k_b2b:.2%} (back to back), chain "
+            f"m={m} steps, {k_b2b / m * 1e6:.1f} ns a masked step, library "
+            f"call: none  [{card}]")
 
         _, pn, ind, vmax, known = TA.prep(feat, refr, flag, True)
         _, ka, kb_ = TAC.scan_stream_cuda(*args)
         kargs = (flag, ind.contiguous(), ka, kb_)
         kbound = kbar_bound(b, flag.shape[1], ind.element_size())
         kk_ms = cuda_ms(lambda: TAC.kbar_build_cuda(*kargs), reps=50)
+        kk_b2b = cuda_ms_back_to_back(lambda: TAC.kbar_build_cuda(*kargs))
         kp_ms = cuda_ms(lambda: TA.kbar_build_reference(*kargs), reps=5,
                         warmup=1)
-        kbar_timings[b] = dict(ms=kk_ms, plain_ms=kp_ms, **kbound)
+        kbar_timings[b] = dict(ms=kk_b2b, single_ms=kk_ms, plain_ms=kp_ms,
+                               **kbound)
         log(f"phase 6 kbar_build B={b} N=1024 ({ind.dtype} ind): kernel "
-            f"{kk_ms:.4f} ms, plain {kp_ms:.2f} ms, bound "
+            f"{kk_ms:.4f} ms single launch, {kk_b2b:.4f} ms a launch back "
+            f"to back, plain {kp_ms:.2f} ms, bound "
             f"{kbound['bound_ms']:.5f} ms ({kbound['bound_by']}: "
             f"{kbound['bytes']} B, {kbound['ops']} ops), share "
-            f"{kbound['bound_ms'] / kk_ms:.2%}, library call: none  [{card}]")
+            f"{kbound['bound_ms'] / kk_b2b:.2%} (back to back), library "
+            f"call: none  [{card}]")
 
     steady = statistics.median(step_ms[1:])
     log(f"phase 6 training 256 px B={TRAIN_BATCH}: {steady:.1f} ms a step "
@@ -602,9 +693,11 @@ def main() -> int:
     for label, value in (("no row masked", 0.0), ("every row masked", 1.0)):
         flag = torch.full((8, 1024), value, device=dev)
         args = (flag,) + scan_args(feat, refr, flag, True)[1:]
+        scan = lambda: TAC.scan_stream_cuda(*args)
         log(f"phase 6 scan_stream B=8 N=1024 {label}: kernel "
-            f"{cuda_ms(lambda: TAC.scan_stream_cuda(*args), reps=50):.4f} ms"
-            f", bound {scan_bound(flag, SCAN_C)['bound_ms']:.5f} ms  [{card}]")
+            f"{cuda_ms(scan, reps=50):.4f} ms single launch, "
+            f"{cuda_ms_back_to_back(scan):.4f} ms a launch back to back, "
+            f"bound {scan_bound(flag, SCAN_C)['bound_ms']:.5f} ms  [{card}]")
 
     lat = []
     for i in range(21):
@@ -640,7 +733,9 @@ def main() -> int:
     batched.close()
 
     # `launches` sums the two main paths (serving, then training); the
-    # times are those at B=8, N=1024, the shapes a train step gives both.
+    # times are those at B=8, N=1024, the shapes a train step gives both:
+    # `ms` a launch of 20 back to back, `single_launch_ms` the median of
+    # single launches, each between its own pair of events.
     t8, k8 = timings[8], kbar_timings[8]
     by_path = lambda name: {"serving": launches[name],
                             "training": train_launches[name]}
@@ -651,7 +746,8 @@ def main() -> int:
         "launches": sum(by_path("scan_stream").values()),
         "launches_by_path": by_path("scan_stream"),
         "max_abs_err": max_abs_err,
-        "ms": t8["ms"], "plain_ms": t8["plain_ms"],
+        "ms": t8["ms"], "single_launch_ms": t8["single_ms"],
+        "plain_ms": t8["plain_ms"],
         "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
         "library_ms": None}, {
         "name": "kbar_build", "route": "cuda",
@@ -660,7 +756,8 @@ def main() -> int:
         "launches": sum(by_path("kbar_build").values()),
         "launches_by_path": by_path("kbar_build"),
         "max_abs_err": kbar_max_abs_err,
-        "ms": k8["ms"], "plain_ms": k8["plain_ms"],
+        "ms": k8["ms"], "single_launch_ms": k8["single_ms"],
+        "plain_ms": k8["plain_ms"],
         "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
         "library_ms": None}]}))
     print(card)

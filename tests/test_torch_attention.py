@@ -23,6 +23,7 @@ from deepinpainting_tpu.ops import attention as JA
 from deepinpainting_tpu.ops import attention_pallas as JAP
 from deepinpainting_torch.ops import attention as TA
 from deepinpainting_torch.ops import attention_cuda as TAC
+from torch_port_helpers import special_flags
 
 H = W = 8
 C = 16
@@ -149,3 +150,45 @@ def test_kernel_wrapper_refuses_what_it_cannot_take():
         TAC.check_inputs(flag, torch.zeros(2, 5), pn, pn)
     with pytest.raises(ValueError):
         TA.check_impl("xla")
+
+
+# ---- the schedule of the CUDA scan kernel, emulated in plain PyTorch -------
+# csrc/scan_stream.cu compacts each sample's masked rows, runs the chain
+# over those alone, and fills the unmasked rows in parallel.  The identity
+# it rests on (an unmasked row neither reads nor changes the carry) is held
+# here bit for bit against the plain version, which walks every row.
+
+def _scan_over_masked_rows_only(flag, vmax, pn, known):
+    """Compact, chain over the masked rows with the oracle's arithmetic,
+    fill the rest."""
+    out = known.clone()                       # the parallel copy
+    a_all = torch.ones_like(vmax)
+    b_all = torch.zeros_like(vmax)
+    for s in range(pn.shape[0]):
+        rows = torch.nonzero(flag[s] > 0).flatten().tolist()   # in order
+        carry = torch.zeros(1, pn.shape[2])
+        for i, q in enumerate(rows):
+            at = (pn[s:s + 1, q].double() * carry.double()).sum(dim=1).float()
+            denom = at + vmax[s, q]
+            a = at / denom if i else torch.zeros(1)
+            b = vmax[s, q] / denom if i else torch.ones(1)
+            carry = a[:, None] * carry + b[:, None] * known[s:s + 1, q]
+            out[s, q], a_all[s, q], b_all[s, q] = carry[0], a[0], b[0]
+    return out, a_all, b_all
+
+
+@pytest.mark.parametrize("known_replacement", [True, False])
+@pytest.mark.parametrize("case", ["no row", "every row", "first row",
+                                  "last row", "hole per sample", "ragged N"])
+def test_chain_over_masked_rows_only_equals_plain_scan(case,
+                                                       known_replacement):
+    n = 45 if case == "ragged N" else N       # 45: no multiple of 32
+    rng = np.random.default_rng(11)
+    feat = torch.from_numpy(rng.standard_normal((B, n, C)).astype(np.float32))
+    ref = torch.from_numpy(rng.standard_normal((B, n, C)).astype(np.float32))
+    flag = torch.from_numpy(special_flags(case, B, n))
+    _, pn, _, vmax, known = TA.prep(feat, ref, flag, known_replacement)
+    want = TA.scan_stream_reference(flag, vmax, pn, known)
+    got = _scan_over_masked_rows_only(flag, vmax, pn, known)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

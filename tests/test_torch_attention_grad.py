@@ -30,6 +30,7 @@ from deepinpainting_tpu.ops import attention as JA
 from deepinpainting_tpu.ops import attention_pallas as JAP
 from deepinpainting_torch.ops import attention as TA
 from deepinpainting_torch.ops import attention_cuda as TAC
+from torch_port_helpers import special_flags
 
 H = W = 8
 C = 16
@@ -254,3 +255,79 @@ def test_kbar_wrapper_refuses_what_it_cannot_take():
         TAC.check_kbar_inputs(flag, ind[:, :4], flag, flag)
     with pytest.raises(ValueError, match=r"\[B, N\]"):
         TAC.check_kbar_inputs(flag[0], ind[0], flag[0], flag[0])
+
+
+# ---- the schedule of the CUDA kbar kernel, emulated in plain PyTorch -------
+# csrc/kbar_build.cu compacts each sample's masked rows, runs the row
+# recurrence over those alone (every column, every masked row), and fills
+# the unmasked rows with their one-hot rows in parallel.  Held here bit for
+# bit against the plain version, which walks every row.
+
+def _kbar_over_masked_rows_only(flag, ind, a, b):
+    bsz, n = flag.shape
+    cols = torch.arange(n)
+    kbar = (cols == ind[:, :, None]).to(torch.float32)    # the parallel fill
+    for s in range(bsz):
+        row = torch.zeros(n)
+        for q in torch.nonzero(flag[s] > 0).flatten().tolist():   # in order
+            row = a[s, q] * row + b[s, q] * kbar[s, q]
+            kbar[s, q] = row
+    return kbar
+
+
+@pytest.mark.parametrize("known_replacement", [True, False])
+@pytest.mark.parametrize("case,dtype", [
+    ("no row", torch.int64), ("every row", torch.int32),
+    ("first row", torch.int64), ("last row", torch.int32),
+    ("hole per sample", torch.int64), ("ragged N", torch.int32)])
+def test_chain_over_masked_rows_only_equals_plain_kbar(case, dtype,
+                                                       known_replacement):
+    n = 45 if case == "ragged N" else N       # 45: no multiple of 32
+    rng = np.random.default_rng(12)
+    feat = torch.from_numpy(rng.standard_normal((B, n, C)).astype(np.float32))
+    ref = torch.from_numpy(rng.standard_normal((B, n, C)).astype(np.float32))
+    flag = torch.from_numpy(special_flags(case, B, n))
+    _, pn, ind, vmax, known = TA.prep(feat, ref, flag, known_replacement)
+    _, a, b = TA.scan_stream_reference(flag, vmax, pn, known)
+    ind = ind.to(dtype)
+    want = TA.kbar_build_reference(flag, ind, a, b)
+    got = _kbar_over_masked_rows_only(flag, ind, a, b)
+    assert torch.equal(got, want)
+    assert torch.equal(got.trunc(), want.trunc())
+
+
+def test_masked_rows_only_carries_the_nan_of_an_infinite_coefficient():
+    """0 * inf is NaN in every column that no index has selected yet, so the
+    chain must run over every column of a masked row; an index outside
+    [0, N) selects none."""
+    flag = torch.zeros(1, 12)
+    flag[0, [2, 3, 7, 9]] = 1
+    ind = torch.tensor([[1, 4, 5, 5, 2, 0, 3, 40, 8, -3, 6, 11]])
+    a = torch.ones(1, 12)
+    b = torch.zeros(1, 12)
+    a[0, [2, 3, 7, 9]] = torch.tensor([0.0, float("inf"), 0.5, -2.0])
+    b[0, [2, 3, 7, 9]] = torch.tensor([1.0, 0.25, 0.5, 3.0])
+    want = TA.kbar_build_reference(flag, ind, a, b)
+    got = _kbar_over_masked_rows_only(flag, ind, a, b)
+    assert bool(want[0, 3].isnan().sum() >= 10)           # the NaN is there
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+
+
+def test_masked_rows_only_differs_from_plain_in_the_sign_of_a_zero_only():
+    """a and b both negative on a zero running value leave -0.  The plain
+    version's step on the next unmasked row, 1*(-0) + 0*x, turns it into
+    +0; a chain that skips that row keeps -0.  The scan never emits such
+    coefficients (a + b = 1).  The two results compare equal and truncate
+    alike; they differ in the sign bit of some zeros and nowhere else."""
+    flag = torch.tensor([[1.0, 0.0, 1.0, 0.0]])
+    ind = torch.tensor([[0, 1, 2, 3]])
+    a = torch.tensor([[-0.5, 1.0, 0.5, 1.0]])
+    b = torch.tensor([[-0.5, 0.0, -0.25, 0.0]])
+    want = TA.kbar_build_reference(flag, ind, a, b)
+    got = _kbar_over_masked_rows_only(flag, ind, a, b)
+    assert torch.equal(got, want)
+    assert torch.equal(got.trunc(), want.trunc())
+    differs = torch.signbit(got) != torch.signbit(want)
+    assert bool(differs.any())
+    assert bool((got[differs] == 0).all()) and bool((want[differs] == 0).all())

@@ -60,6 +60,70 @@ def test_kernel_matches_plain(cuda, c):
     assert bool((got[1][um] == 1).all()) and bool((got[2][um] == 0).all())
 
 
+def _benign_scan_inputs(b, n, c, flag, seed):
+    """Non-negative pn and known: at > 0 and (a, b) in (0, 1), so a chain of
+    any length stays a convex blend and the short-chain limit applies."""
+    rng = np.random.default_rng(seed)
+    pn = torch.from_numpy(np.abs(rng.standard_normal((b, n, c))
+                                 ).astype(np.float32))
+    pn = pn / pn.norm(dim=2, keepdim=True)
+    known = torch.from_numpy(np.abs(rng.standard_normal((b, n, c))
+                                    ).astype(np.float32))
+    vmax = torch.from_numpy(rng.random((b, n)).astype(np.float32) + 0.5)
+    return flag.float(), vmax, pn, known
+
+
+def _special_flag(case, b, n):
+    flag = torch.zeros(b, n)
+    if case == "every row":
+        flag[:] = 1
+    elif case == "first row":
+        flag[:, 0] = 1
+        flag[:, n // 2:n // 2 + 5] = 1
+    elif case == "last row":
+        flag[:, n - 1] = 1
+        flag[:, n // 3:n // 3 + 4] = 1
+    elif case == "per sample":
+        for i in range(b):                 # sample 0 has no masked row
+            flag[i, (7 * i) % n:(7 * i) % n + 3 * i] = 1
+    elif case == "scattered":
+        flag = (torch.rand(b, n, generator=torch.Generator().manual_seed(n))
+                < 0.2).float()
+    else:
+        assert case == "no row"
+    return flag
+
+
+# (case, B, N, C): the cases the chain-over-masked-rows design makes
+# special.  N=48 is no multiple of 32, N=5000 needs two compaction tiles,
+# C=64 leaves three consumer warps without a float4, C=1024 gives a thread
+# two, B=200 is more samples than the card has SMs.
+_SCAN_SPECIAL = [
+    ("no row", 2, 1024, 512), ("every row", 2, 256, 512),
+    ("first row", 2, 1024, 512), ("last row", 2, 1024, 512),
+    ("per sample", 5, 1024, 512), ("scattered", 2, 48, 512),
+    ("every row", 1, 48, 64), ("scattered", 2, 4096, 512),
+    ("scattered", 1, 5000, 128), ("scattered", 3, 1024, 64),
+    ("scattered", 2, 512, 1024), ("per sample", 200, 256, 128),
+    ("no row", 1, 1, 4), ("every row", 1, 1, 4)]
+
+
+@pytest.mark.parametrize("case,b,n,c", _SCAN_SPECIAL)
+def test_scan_kernel_special_cases(cuda, case, b, n, c):
+    args = [t.to(cuda).contiguous() for t in _benign_scan_inputs(
+        b, n, c, _special_flag(case, b, n), seed=n + c)]
+    got = TAC.scan_stream_cuda(*args)
+    torch.cuda.synchronize()
+    want = TA.scan_stream_reference(*args)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert (g - w).abs().max().item() <= 2e-3
+    um = args[0] == 0
+    assert torch.equal(got[0][um], args[3][um])
+    assert bool((got[1][um] == 1).all()) and bool((got[2][um] == 0).all())
+    torch.cuda.synchronize()
+
+
 def test_kernel_refuses_bad_inputs(cuda):
     flag, vmax, pn, known = (t.to(cuda) for t in
                              _scan_inputs(2, 8, 128, (2,), seed=0))
@@ -93,8 +157,8 @@ def _kbar_inputs(b, n, seed, dtype=torch.int64):
     (3, 100, torch.int64), (2, 1, torch.int32), (2, 4096, torch.int64)])
 def test_kbar_kernel_equals_plain_bit_for_bit(cuda, b, n, dtype):
     """No reduction anywhere and no FMA contraction in the kernel: the two
-    must agree exactly, also where N is no multiple of the block's 64
-    columns or of the 256-row tile."""
+    must agree exactly, also where N is no multiple of a chain block's
+    256 columns (100, 1) and where it spans two compaction tiles (4096)."""
     args = [t.to(cuda) for t in _kbar_inputs(b, n, seed=n + b, dtype=dtype)]
     before = TAC.kbar_launches
     got = TAC.kbar_build_cuda(*args)
@@ -107,6 +171,40 @@ def test_kbar_kernel_equals_plain_bit_for_bit(cuda, b, n, dtype):
     um = args[0] == 0
     onehot = torch.nn.functional.one_hot(args[1][um].long(), n).float()
     assert torch.equal(got[um], onehot)
+
+
+# (case, B, N, dtype) as for the scan; "inf" puts an infinite and a
+# negative coefficient on masked rows (0*inf is NaN in every column no
+# index selects, and the kernel must carry it as the plain version does).
+_KBAR_SPECIAL = [
+    ("no row", 2, 1024, torch.int64), ("every row", 2, 256, torch.int32),
+    ("first row", 2, 1024, torch.int64), ("last row", 2, 1024, torch.int32),
+    ("per sample", 5, 1024, torch.int64), ("scattered", 2, 48, torch.int64),
+    ("scattered", 1, 4096, torch.int64), ("scattered", 1, 5000, torch.int32),
+    ("per sample", 200, 256, torch.int64), ("inf", 2, 96, torch.int64),
+    ("every row", 1, 1, torch.int64), ("scattered", 2, 3, torch.int32)]
+
+
+@pytest.mark.parametrize("case,b,n,dtype", _KBAR_SPECIAL)
+def test_kbar_kernel_special_cases(cuda, case, b, n, dtype):
+    _, ind, a, bb = _kbar_inputs(b, n, seed=n, dtype=dtype)
+    flag = _special_flag("scattered" if case == "inf" else case, b, n)
+    a = torch.where(flag > 0, a, torch.ones(b, n))
+    bb = torch.where(flag > 0, 1 - a, torch.zeros(b, n))
+    if case == "inf":
+        rows = flag[0].nonzero().flatten()
+        a[0, rows[1]] = float("inf")
+        a[1, flag[1].nonzero().flatten()[0]] = -0.5
+        ind[:, 0] = n + 7                  # outside [0, N): no column
+    args = [t.to(cuda).contiguous() for t in (flag, ind, a, bb)]
+    got = TAC.kbar_build_cuda(*args)
+    torch.cuda.synchronize()
+    want = TA.kbar_build_reference(*args)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+    assert torch.equal(got.trunc().nan_to_num(7.0),
+                       want.trunc().nan_to_num(7.0))
+    torch.cuda.synchronize()
 
 
 def test_kbar_kernel_refuses_bad_inputs(cuda):

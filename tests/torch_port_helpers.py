@@ -142,6 +142,30 @@ def nhwc(t):
     return t.detach().numpy().transpose(0, 2, 3, 1)
 
 
+def special_flags(case, b, n):
+    """[b, n] f32 flags for the cases that the masked-rows-only schedules of
+    the CUDA kernels make special (no row, every row, the first or the last
+    row masked, a different hole per sample, an N that is no multiple of
+    32)."""
+    f = np.zeros((b, n), np.float32)
+    if case == "every row":
+        f[:] = 1
+    elif case == "first row":
+        f[:, 0] = 1
+        f[:, n // 2:n // 2 + 4] = 1
+    elif case == "last row":
+        f[:, n - 1] = 1
+        f[:, n // 3:n // 3 + 3] = 1
+    elif case == "hole per sample":      # sample 0 has no masked row
+        for i in range(b):
+            f[i, 5 * i:5 * i + 4 * i] = 1
+    else:
+        assert case in ("no row", "ragged N")
+        if case == "ragged N":
+            f[:, 3::5] = 1
+    return f
+
+
 def tiny_batch(seed, b=2, size=64):
     """A uint8 training batch of `b` 64 px samples with small holes, of two
     kinds in turn: 7 and 5 masked positions on the 8x8 attention grid."""
