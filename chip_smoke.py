@@ -27,7 +27,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   6. numbers: kernel times (the median of single launches, and the time a
      launch of 20 back to back), plain times, bounds, the scan's time a
      masked step, serving latency/throughput, train-step time and peak
-     memory.
+     memory;
+  7. the training program at full width: a synthetic 256 px dataset on
+     disk, Trainer.fit for 2 epochs at batch 8 with 4 loader processes
+     (validation, a visual dump, async checkpoints; launch counts read
+     around it), a restore checked bit for bit, a resume that runs exactly
+     epoch 3, evaluate() on the validation images, and evaluate() with the
+     kernels against the plain versions at phase 4's small hole; then
+     trainer img/s beside the bare step's, checkpoint and restore times,
+     the loader alone, evaluate img/s and a profile of one epoch.
 Three lines end the output, each on its own: a JSON object with a `kernels`
 list, the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -35,6 +43,7 @@ list, the card's name and power limit as nvidia-smi gives them, and last
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 import statistics
@@ -189,6 +198,294 @@ def profile_calls(label: str, calls, card: str) -> None:
         log(f"  {cls:18s} {us / n / 1e3:8.3f} ms each  {us / total:6.1%}")
     for us, count, name in sorted(top, reverse=True)[:8]:
         log(f"  top {us / n / 1e3:8.3f} ms each x{count / n:g}: {name}")
+
+
+def write_synthetic_data(root: str, s: int, center, strokes, small) -> dict:
+    """Phase 7's data at s px: 48 training images, 48 refs, 16 validation
+    images (smooth two-colour gradients with a few flat shapes and a little
+    noise, as JPEG), 8 masks (center squares and strokes, as PNG, 255 =
+    hole) and the one-mask set of phase 4's small hole."""
+    from PIL import Image
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:s, 0:s] / s
+
+    def picture():
+        c0, c1 = rng.uniform(0.1, 0.9, (2, 3))
+        t = (np.cos(rng.uniform(0, 6.3)) * xx
+             + np.sin(rng.uniform(0, 6.3)) * yy + 1.0)[..., None] / 2.0
+        img = c0 * (1 - t) + c1 * t
+        for _ in range(3):
+            cx, cy, r = rng.uniform(0.2, 0.8, 3) * (s, s, 0.3)
+            img[(xx * s - cx) ** 2 + (yy * s - cy) ** 2 <= (r * s) ** 2] = \
+                rng.uniform(0, 1, 3)
+        img += rng.normal(0, 0.02, img.shape)
+        return Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8))
+
+    def mask_png(m):
+        return Image.fromarray(np.repeat(m[..., None] * 255, 3, -1))
+
+    dirs = {}
+    for name, n in (("img", 48), ("ref", 48), ("val", 16), ("mask", 8),
+                    ("small", 1)):
+        dirs[name] = os.path.join(root, name)
+        os.makedirs(dirs[name])
+        for i in range(n):
+            if name == "mask":
+                m = center(1)[0] if i % 2 else strokes(1)[0]
+                mask_png(m).save(os.path.join(dirs[name], f"m{i}.png"))
+            elif name == "small":
+                mask_png(small[0]).save(os.path.join(dirs[name], "m.png"))
+            else:
+                picture().save(os.path.join(dirs[name], f"x{i:03d}.jpg"))
+    return dirs
+
+
+def training_program(dev, card: str, bare_img_s: float, center, strokes,
+                     small, n_small: int) -> dict:
+    """Phase 7: the training program at full width through its entry
+    points: data on disk -> Trainer.fit (2 epochs at B=8, validation,
+    visual dump, async checkpoints) -> restore -> resume -> evaluate, and
+    evaluation with the kernels against the plain versions.  Returns the
+    kernels' launches on the trainer and evaluate paths."""
+    import shutil
+    import tempfile
+    import torch
+    from deepinpainting_torch.config import Config
+    from deepinpainting_torch.data import (BatchIterator, InpaintDataset,
+                                           SelfRefDataset)
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.engine.evaluator import evaluate
+    from deepinpainting_torch.engine.schedules import lr_for_epoch
+    from deepinpainting_torch.engine.state import (NETWORKS, TRAINED,
+                                                   current_learning_rate)
+    from deepinpainting_torch.engine.trainer import Trainer
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.utils.metrics import psnr, ssim
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_phase7_", dir=build)
+    try:
+        s = 256
+        t0 = time.perf_counter()
+        dirs = write_synthetic_data(root, s, center, strokes, small)
+        log(f"phase 7 data: 48 training images, 48 refs, 16 validation "
+            f"images, 8 masks at {s} px in {time.perf_counter() - t0:.2f} s")
+        cfg = Config(batch_size=TRAIN_BATCH, niter=2, niter_decay=0,
+                     save_epoch_freq=1, display_freq=96, metrics_every=3,
+                     data_workers=4, checkpoints_dir=root)
+        train_ds = InpaintDataset(dirs["img"], dirs["mask"], dirs["ref"], s,
+                                  seed=cfg.seed)
+        valid_ds = InpaintDataset(dirs["val"], dirs["mask"], dirs["ref"], s,
+                                  seed=cfg.seed + 1)
+
+        # epoch -> its wall time (data included), the rate it trained with,
+        # how long its first batch kept the first step waiting, and the
+        # host's time between step calls
+        epochs = {}
+
+        def timed(tr):
+            inner_epoch, inner_step = tr.train_epoch, tr.train_step
+            calls = []
+
+            def train_step(state, batch, generator):
+                calls.append(time.perf_counter())
+                return inner_step(state, batch, generator)
+
+            def train_epoch(state, epoch, total_steps):
+                lr = current_learning_rate(state)
+                torch.cuda.synchronize()
+                calls.clear()
+                t = time.perf_counter()
+                out = inner_epoch(state, epoch, total_steps)
+                torch.cuda.synchronize()
+                epochs[epoch] = {
+                    "s": time.perf_counter() - t, "lr": lr,
+                    "first_ms": (calls[0] - t) * 1e3,
+                    "gaps_ms": [(b - a) * 1e3
+                                for a, b in zip(calls, calls[1:])]}
+                return out
+            tr.train_step, tr.train_epoch = train_step, train_epoch
+            return tr
+
+        # -- train: 2 epochs of 6 steps, 2 validation batches an epoch,
+        #    one visual dump (display_freq 96 = the 12th step's images) --
+        tr = timed(Trainer(cfg, train_ds, valid_ds, device=dev))
+        tr.ckpt.max_to_keep = 2
+        TAC.launches = TAC.kbar_launches = 0   # counts: the trainer only
+        t0 = time.perf_counter()
+        state = tr.fit()
+        fit_s = time.perf_counter() - t0
+        trainer_launches = {"scan_stream": TAC.launches,
+                            "kbar_build": TAC.kbar_launches}
+        with open(tr.logger.path) as f:
+            rows = list(csv.DictReader(f))
+        values = [float(r[k]) for r in rows for k in r if k not in
+                  ("step", "time")]
+        log(f"phase 7 fit: 2 epochs in {fit_s:.2f} s, state.step="
+            f"{state.step}, {len(rows)} metric rows, launches "
+            f"{trainer_launches}, checkpoints {tr.ckpt.all_epochs()}, "
+            f"last row {rows[-1]}")
+        check(len(rows) == 12 and state.step == 12,
+              "metrics.csv must hold one row a step, 12 steps")
+        check(all(np.isfinite(values)), "every logged metric must be finite")
+        check(all(np.isfinite(tr.logger.epoch_valid)),
+              "validation losses must be finite")
+        check(tr.ckpt.all_epochs() == [1, 2], "checkpoints of epochs 1, 2")
+        check(os.path.exists(os.path.join(tr.out_dir, "loss_plot.png")),
+              "loss_plot.png")
+        check(os.listdir(os.path.join(tr.out_dir, "saveimg"))
+              == ["Epoch_(2)_(96).jpg"], "one visual dump")
+        check(trainer_launches == {"scan_stream": 12 + 4 + 1,
+                                   "kbar_build": 12},
+              "scan: 12 train steps + 4 validation batches + 1 visual "
+              "dump; kbar: 12 train steps")
+        check(epochs[1]["lr"] == cfg.lr
+              and epochs[2]["lr"] == lr_for_epoch(cfg, 1)
+              and current_learning_rate(state) == lr_for_epoch(cfg, 2),
+              "the learning rate after each epoch is lr_for_epoch's")
+        save = dict(tr.ckpt.last_save)
+
+        # -- restore epoch 2 into a fresh state: bit for bit --
+        fresh = TI.create_state(cfg, torch.Generator().manual_seed(99), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.ckpt.restore(2, fresh, dev)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        same = fresh.step == state.step
+        for n in NETWORKS:
+            a, b = getattr(state, n).state_dict(), getattr(fresh, n
+                                                          ).state_dict()
+            same &= set(a) == set(b) and all(torch.equal(a[k], b[k])
+                                             for k in a)
+        n_opt = 0
+        for n in TRAINED:
+            pa = list(getattr(state, n).parameters())
+            pb = list(getattr(fresh, n).parameters())
+            oa, ob = getattr(state, f"opt_{n}"), getattr(fresh, f"opt_{n}")
+            for p, q in zip(pa, pb):
+                for k in ("exp_avg", "exp_avg_sq", "step"):
+                    same &= torch.equal(oa.state[p][k], ob.state[q][k])
+                    n_opt += 1
+        log(f"phase 7 restore of epoch 2: {restore_ms:.1f} ms, every tensor "
+            f"of G, P, D, F and VGG and {n_opt} optimiser tensors bit for "
+            f"bit: {same}  [{card}]")
+        check(same, "the restored state must equal the trained one")
+        del fresh, state
+
+        # -- resume from the latest checkpoint: exactly epoch 3 --
+        ran = set(epochs)
+        cfg3 = cfg.replace(continue_train=True, which_epoch="latest", niter=3)
+        tr3 = timed(Trainer(cfg3, train_ds, valid_ds, device=dev))
+        tr3.ckpt.max_to_keep = 2
+        state = tr3.fit()
+        log(f"phase 7 resume: epochs run {sorted(set(epochs) - ran)}, "
+            f"state.step={state.step}, checkpoints {tr3.ckpt.all_epochs()}")
+        check(sorted(set(epochs) - ran) == [3] and state.step == 18,
+              "the resume must run exactly epoch 3")
+        check(epochs[3]["lr"] == lr_for_epoch(cfg, 1)
+              and current_learning_rate(state) == lr_for_epoch(cfg3, 3),
+              "the resumed rate is the checkpoint's, then lr_for_epoch's")
+        check(tr3.ckpt.all_epochs() == [2, 3], "two checkpoints kept")
+
+        # -- evaluate the trained model on the validation images --
+        eval_cfg = cfg.replace(is_train=False)
+        eval_ds = SelfRefDataset(dirs["val"], dirs["mask"], s)
+        TAC.launches = TAC.kbar_launches = 0    # counts: evaluate only
+        res = evaluate(eval_cfg, state, eval_ds, device=dev, verbose=False,
+                       return_per_image=True)
+        eval_launches = {"scan_stream": TAC.launches,
+                         "kbar_build": TAC.kbar_launches}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate(eval_cfg, state, eval_ds, device=dev, verbose=False)
+        eval_img_s = 16 / (time.perf_counter() - t0)
+        log(f"phase 7 evaluate: {res['images']} images, PSNR mean "
+            f"{res['psnr']:.4f} dB (per image {min(res['psnr_per_image']):.4f}"
+            f" to {max(res['psnr_per_image']):.4f}), SSIM mean "
+            f"{res['ssim']:.5f} ({min(res['ssim_per_image']):.5f} to "
+            f"{max(res['ssim_per_image']):.5f}), launches {eval_launches}"
+            f"  [{card}]")
+        check(res["images"] == 16 and all(np.isfinite(
+            res["psnr_per_image"] + res["ssim_per_image"])),
+            "evaluate: 16 finite images")
+        check(eval_launches == {"scan_stream": 2, "kbar_build": 0},
+              "evaluate: one scan launch a batch, no kbar")
+
+        # -- evaluation, kernels against plain versions, phase 4's hole --
+        small_ds = SelfRefDataset(dirs["val"], dirs["small"], s)
+        series = {impl: evaluate(eval_cfg.replace(attention_impl=impl), state,
+                                 small_ds, device=dev, verbose=False,
+                                 return_per_image=True)
+                  for impl in ("cuda", "torch")}
+        # The limits: fake_B of the two paths may differ by up to
+        # E2E_TOL everywhere (phase 4's limit), and a metric m can then move
+        # by at most E2E_TOL * ||dm/dfake_B||_1 to first order (Hoelder),
+        # doubled for the higher orders; the gradient is taken on the plain
+        # path's fake_B of each image.
+        eval_step = TI.make_eval_step(eval_cfg.replace(attention_impl="torch"),
+                                      dev)
+        limits = {"psnr": [], "ssim": []}
+        for batch in BatchIterator(small_ds, TRAIN_BATCH, shuffle=False,
+                                   drop_last=False, workers=0):
+            out = eval_step(state, batch)
+            gt = out["visuals"]["real_B"].permute(0, 3, 1, 2).clone()
+            for name, fn in (("psnr", psnr), ("ssim", ssim)):
+                fb = out["fake_B"].permute(0, 3, 1, 2).clone(
+                    ).requires_grad_(True)
+                fn(gt, fb).sum().backward()
+                limits[name] += (2 * E2E_TOL * fb.grad.abs().sum(
+                    dim=(1, 2, 3))).tolist()
+        d = {k: [abs(a - b) for a, b in zip(series["cuda"][f"{k}_per_image"],
+                                            series["torch"][f"{k}_per_image"])]
+             for k in ("psnr", "ssim")}
+        log(f"phase 7 evaluate at a {n_small}-position hole, "
+            f"kernels vs plain versions: PSNR max|d| {max(d['psnr']):.3e} dB "
+            f"(limits {min(limits['psnr']):.3e} to {max(limits['psnr']):.3e}),"
+            f" SSIM max|d| {max(d['ssim']):.3e} (limits "
+            f"{min(limits['ssim']):.3e} to {max(limits['ssim']):.3e})")
+        for k in ("psnr", "ssim"):
+            check(all(x <= lim for x, lim in zip(d[k], limits[k])),
+                  f"evaluate {k}: kernels vs plain versions beyond the limit")
+
+        # -- numbers --
+        e2 = epochs[2]
+        log(f"phase 7 trainer epoch 2 (6 steps at B={TRAIN_BATCH}, data "
+            f"included, host clock): {e2['s'] * 1e3:.1f} ms, "
+            f"{48 / e2['s']:.2f} img/s, against the bare step's "
+            f"{bare_img_s:.2f} img/s (phase 5): "
+            f"{48 / e2['s'] / bare_img_s:.1%}; epoch 1 "
+            f"{epochs[1]['s'] * 1e3:.1f} ms, epoch 3 (resumed) "
+            f"{epochs[3]['s'] * 1e3:.1f} ms  [{card}]")
+        for ep in (1, 2, 3):
+            log(f"phase 7 epoch {ep}: first step called after "
+                f"{epochs[ep]['first_ms']:.1f} ms (its batch decoded by one "
+                f"loader process), then every " + " / ".join(
+                    f"{g:.1f}" for g in epochs[ep]["gaps_ms"]) + " ms")
+        log(f"phase 7 checkpoint save (epoch 2, async): blocking "
+            f"{save['blocking_ms']:.1f} ms, until in place "
+            f"{save['total_ms']:.1f} ms, {save['bytes']} bytes; epoch 3: "
+            f"blocking {tr3.ckpt.last_save['blocking_ms']:.1f} ms, until in "
+            f"place {tr3.ckpt.last_save['total_ms']:.1f} ms; restore "
+            f"{restore_ms:.1f} ms  [{card}]")
+        t0 = time.perf_counter()
+        n_img = sum(b["image"].shape[0] for ep in (20, 21) for b in
+                    BatchIterator(train_ds, TRAIN_BATCH, seed=ep, workers=4))
+        log(f"phase 7 loader alone (4 worker processes, warm pool, no "
+            f"training): {n_img / (time.perf_counter() - t0):.1f} img/s over "
+            f"{n_img} images  [{card}]")
+        log(f"phase 7 evaluate: {eval_img_s:.2f} img/s (16 images at B="
+            f"{TRAIN_BATCH}, data included, second call)  [{card}]")
+        profile_calls("trainer epoch (6 steps at B=8, data included)",
+                      [lambda: tr3.train_epoch(state, 4, 0)], card)
+        train_ds.close()
+        valid_ds.close()
+        eval_ds.close()
+        small_ds.close()
+        return {"trainer": trainer_launches, "evaluate": eval_launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -732,13 +1029,21 @@ def main() -> int:
     single.close()
     batched.close()
 
-    # `launches` sums the two main paths (serving, then training); the
+    # ---- phase 7: the training program at full width ----------------------
+    program_launches = training_program(
+        dev, card, TRAIN_BATCH / steady * 1e3, center, strokes, small,
+        n_small)
+
+    # `launches` sums the main paths (serving, the train step, the trainer,
+    # evaluate); the
     # times are those at B=8, N=1024, the shapes a train step gives both:
     # `ms` a launch of 20 back to back, `single_launch_ms` the median of
     # single launches, each between its own pair of events.
     t8, k8 = timings[8], kbar_timings[8]
     by_path = lambda name: {"serving": launches[name],
-                            "training": train_launches[name]}
+                            "training": train_launches[name],
+                            "trainer": program_launches["trainer"][name],
+                            "evaluate": program_launches["evaluate"][name]}
     print(json.dumps({"kernels": [{
         "name": "scan_stream", "route": "cuda",
         "source": "deepinpainting_torch/csrc/scan_stream.cu",

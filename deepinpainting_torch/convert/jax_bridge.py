@@ -1,5 +1,6 @@
 """Weight bridge: the JAX package's flat per-network parameter dicts ->
-state_dicts of the port's networks.
+state_dicts of the port's networks, the way back (`flat_dict`), and optax
+Adam state -> torch Adam state (`bridge_adam_state`).
 
 Input is one network's flat dict of numpy arrays, exactly what
 deepinpainting_tpu/engine/checkpoint.py::export_network_npz writes (so an
@@ -32,7 +33,7 @@ anything else raises.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -127,3 +128,79 @@ def load_flat(module: nn.Module, flat: Mapping[str, np.ndarray]
     """Load a flat JAX parameter dict (or an opened .npz) into `module`."""
     module.load_state_dict(bridge_state_dict(flat, module), strict=True)
     return module
+
+
+# ---------------------------------------------------------------------------
+# the other direction: a port network -> the JAX flat dict
+# ---------------------------------------------------------------------------
+
+_LEAF_OF = {"weight": "kernel", "bias": "bias"}
+_NORM_LEAF_OF = {"weight": "scale", "bias": "offset", "running_mean": "mean",
+                 "running_var": "var"}
+
+
+def flat_dict(module: nn.Module) -> Dict[str, np.ndarray]:
+    """`module`'s parameters and running statistics as the flat dict that
+    deepinpainting_tpu/engine/checkpoint.py::export_network_npz writes for
+    the same network: the inverse of bridge_state_dict, keyed by the same
+    names (VGG's "conv1_1_kernel", "/"-joined paths elsewhere, with the
+    "params/" and "batch_stats/" collections when the network has
+    BatchNorm)."""
+    from ..models.vgg16 import Vgg16
+    has_bn = any(isinstance(m, nn.BatchNorm2d) for m in module.modules())
+    out: Dict[str, np.ndarray] = {}
+    for name, t in module.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        path, attr = name.rsplit(".", 1)
+        layer = module.get_submodule(path)
+        arr = t.detach().cpu().numpy()
+        if isinstance(layer, (InstanceNorm, nn.BatchNorm2d)):
+            leaf = _NORM_LEAF_OF[attr]
+        elif isinstance(layer, (nn.Conv2d, nn.ConvTranspose2d)):
+            leaf = _LEAF_OF[attr]
+            if leaf == "kernel":
+                # OIHW -> HWIO; ConvTranspose2d [I,O,kh,kw] -> [kh,kw,I,O]
+                arr = arr.transpose((2, 3, 0, 1) if isinstance(
+                    layer, nn.ConvTranspose2d) else (2, 3, 1, 0))
+        else:
+            raise ValueError(f"{name}: no JAX layout for a "
+                             f"{type(layer).__name__}")
+        if isinstance(module, Vgg16):
+            key = f"{path}_{leaf}"
+        else:
+            key = f"{path.replace('.', '/')}/{leaf}"
+            if has_bn:
+                key = ("batch_stats/" if leaf in _STATS else "params/") + key
+        out[key] = np.ascontiguousarray(arr)
+    return out
+
+
+def bridge_adam_state(opt: torch.optim.Adam, module: nn.Module, count: int,
+                      mu: Mapping[str, np.ndarray],
+                      nu: Mapping[str, np.ndarray],
+                      lr: Optional[float] = None) -> torch.optim.Adam:
+    """Load the state of an optax `inject_hyperparams(adam)` chain into the
+    torch Adam `opt` that steps `module`'s parameters: optax's count is
+    torch's `step` (both count the steps taken; the bias corrections use
+    it alike), mu is `exp_avg`, nu `exp_avg_sq`, and `lr` (the injected
+    learning rate) goes into every param group.  mu and nu are flat dicts
+    of the params subtree, as flat_dict writes them; each moment is matched
+    to its parameter by name, never by position."""
+    params = dict(module.named_parameters())
+    owned = {id(p) for g in opt.param_groups for p in g["params"]}
+    if set(map(id, params.values())) != owned:
+        raise ValueError("opt does not step exactly module's parameters")
+    moments = [bridge_tensors(mu, module), bridge_tensors(nu, module)]
+    for m in moments:
+        if set(m) != set(params):
+            raise KeyError("moments do not cover the parameters: "
+                           f"{sorted(set(params) ^ set(m))}")
+    for name, p in params.items():
+        opt.state[p] = {"step": torch.tensor(float(count)),
+                        "exp_avg": moments[0][name].to(p.device),
+                        "exp_avg_sq": moments[1][name].to(p.device)}
+    if lr is not None:
+        for group in opt.param_groups:
+            group["lr"] = float(lr)
+    return opt

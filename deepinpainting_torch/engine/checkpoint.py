@@ -1,0 +1,174 @@
+"""Checkpoint / resume: one file a saved epoch holding the whole training
+state (counterpart of deepinpainting_tpu/engine/checkpoint.py, which keeps
+one orbax checkpoint an epoch).
+
+`{directory}/epoch_{N}.pt` is `TrainState.state_dict()` with every tensor
+on the host: the four trainable networks, the frozen VGG, the four Adam
+optimisers (moments, step counts, learning rate) and the step count, so a
+resume is exact.  Each file is written under a temporary name and renamed
+into place, so a crash never leaves a partial checkpoint under an epoch's
+name.  Per-network .npz export/import in the JAX package's flat key layout
+is kept for interop with it.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import threading
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..config import Config
+from ..device import DeviceLike, resolve_device
+from .state import TrainState
+
+_FILE = re.compile(r"^epoch_(\d+)\.pt$")
+
+
+def _to_host(obj):
+    """A copy of a nested state_dict with every tensor in host memory (the
+    copies from the card go to pinned memory without blocking; the caller
+    synchronises)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", non_blocking=True, copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+class CheckpointManager:
+    """Saves and restores TrainStates under `{checkpoints_dir}/{name}`.
+
+    config.json: a training manager (cfg.is_train) writes it at
+    construction only when none exists, so a resume that fails (a typo'd
+    epoch) cannot destroy the original run's record; its first save then
+    records the config that ran.  A restore-only manager (is_train=False,
+    as evaluation builds it) never writes it.
+
+    async_save: save() copies every tensor to host memory before it
+    returns, because the next train step updates the live tensors in
+    place; only the disk write runs in a background thread, so it overlaps
+    the trainer's validation pass.  One write is in flight at a time;
+    wait(), restore() and the listings finish it first and raise its
+    error, if it had one.
+    """
+
+    def __init__(self, cfg: Config, directory: Optional[str] = None,
+                 max_to_keep: Optional[int] = None,
+                 async_save: bool = False):
+        directory = directory or os.path.join(cfg.checkpoints_dir, cfg.name)
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self._cfg = cfg
+        self._config_written = not cfg.is_train
+        cfg_path = os.path.join(self.directory, "config.json")
+        if cfg.is_train and not os.path.exists(cfg_path):
+            cfg.save(cfg_path)
+            self._config_written = True
+        self.max_to_keep = max_to_keep
+        self.async_save = async_save
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        # the newest save's figures: ms until save() returned, ms until the
+        # file was in place, and its size in bytes
+        self.last_save: Dict[str, float] = {}
+
+    def path(self, epoch: int) -> str:
+        return os.path.join(self.directory, f"epoch_{epoch}.pt")
+
+    def save(self, epoch: int, state: TrainState) -> None:
+        """The reference's model.save(epoch), every network and optimiser."""
+        self.wait()
+        if not self._config_written:
+            self._cfg.save(os.path.join(self.directory, "config.json"))
+            self._config_written = True
+        t0 = time.perf_counter()
+        host = _to_host(state.state_dict())
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.last_save = {"blocking_ms": (time.perf_counter() - t0) * 1e3}
+        if self.async_save:
+            self._writer = threading.Thread(
+                target=self._write, args=(epoch, host, t0), daemon=True)
+            self._writer.start()
+        else:
+            self._write(epoch, host, t0)
+            self.wait()
+
+    def _write(self, epoch: int, host: dict, t0: float) -> None:
+        try:
+            path = self.path(epoch)
+            tmp = f"{path}.tmp{os.getpid()}"
+            torch.save(host, tmp)
+            os.replace(tmp, path)
+            self.last_save.update(total_ms=(time.perf_counter() - t0) * 1e3,
+                                  bytes=os.path.getsize(path))
+            if self.max_to_keep:
+                for old in self._epochs()[:-self.max_to_keep]:
+                    os.remove(self.path(old))
+        except BaseException as e:   # raised by wait() in the caller
+            self._error = e
+
+    def wait(self) -> None:
+        """Finish the write in flight, raising its error if it failed."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def restore(self, epoch: int, state: TrainState,
+                device: DeviceLike = None) -> TrainState:
+        """Load epoch `epoch` into `state` in place (a fresh create_state of
+        the same config) and return it.  The file is read onto `device`
+        ("cuda" unless given "cpu"), where `state` lives."""
+        dev = resolve_device(device)
+        self.wait()     # an in-flight save may be this epoch
+        if epoch not in self._epochs():
+            raise FileNotFoundError(
+                f"no checkpoint for epoch {epoch} under {self.directory}; "
+                f"available: {self._epochs()}")
+        sd = torch.load(self.path(epoch), map_location=dev,
+                        weights_only=True)
+        state.load_state_dict(sd)
+        return state
+
+    def _epochs(self) -> List[int]:
+        return sorted(int(m.group(1)) for m in map(
+            _FILE.match, os.listdir(self.directory)) if m)
+
+    def latest_epoch(self) -> Optional[int]:
+        epochs = self.all_epochs()
+        return epochs[-1] if epochs else None
+
+    def all_epochs(self) -> List[int]:
+        self.wait()
+        return self._epochs()
+
+    def close(self) -> None:
+        self.wait()
+
+
+def export_network_npz(module: nn.Module, path: str) -> None:
+    """One network as a flat .npz in the JAX package's key layout, which
+    its import_network_npz loads (the interop role of the reference's
+    per-network state_dict files)."""
+    from ..convert.jax_bridge import flat_dict
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat_dict(module))
+
+
+def import_network_npz(module: nn.Module, path: str) -> nn.Module:
+    """Load a flat .npz that export_network_npz of either package wrote
+    into `module`; every key must land and every parameter be filled."""
+    from ..convert.jax_bridge import load_flat
+    with np.load(path) as raw:
+        return load_flat(module, raw)

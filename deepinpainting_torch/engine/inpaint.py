@@ -1,7 +1,7 @@
 """The inpainting engine (counterpart of
 deepinpainting_tpu/engine/inpaint.py): model factory, weight init, input
-preparation, the two-stage forward, the inference and serving functions
-and the GAN train step.
+preparation, the two-stage forward, the inference and serving functions,
+the GAN train step, the eval step and the coarse stage.
 
 Data flow, as the JAX package's:
 
@@ -114,8 +114,7 @@ def check_train_config(cfg: Config) -> None:
             "precision")
     check_config(cfg)
     for name, value, ok in (("grad_accum", cfg.grad_accum, 1),
-                            ("remat", cfg.remat, False),
-                            ("debug_nan", cfg.debug_nan, False)):
+                            ("remat", cfg.remat, False)):
         if value != ok:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet (port trains with "
@@ -266,6 +265,9 @@ class ForwardOut(NamedTuple):
     fake_P: torch.Tensor       # NCHW
     fake_B: torch.Tensor       # NCHW
     taps: Dict[str, torch.Tensor]
+    masked_mean: torch.Tensor  # netP input: the hole filled with the mean
+    known: torch.Tensor        # zero-holed gt (the reference's real_A)
+    syn: torch.Tensor          # fake_P in the hole, gt outside
 
 
 def two_stage_forward(G: UnetGeneratorIPSR, P: UnetGenerator,
@@ -283,7 +285,7 @@ def two_stage_forward(G: UnetGeneratorIPSR, P: UnetGenerator,
     syn = fake_P.detach() * mask[:, None] + known
     middle = torch.cat([syn, known], dim=1)
     fake_B, taps = G(middle, ref_feat, flag, attention_impl, generator)
-    return ForwardOut(fake_P, fake_B, taps)
+    return ForwardOut(fake_P, fake_B, taps, masked_mean, known, syn)
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
@@ -355,7 +357,9 @@ def make_train_step(cfg: Config, device: DeviceLike = None):
     networks and optimisers are updated in place and the same state comes
     back with step + 1; each parameter's `.grad` holds the gradient the
     step applied.  metrics: 0-dim f32 tensors on `device` — G_GAN, G_L1, D,
-    F, cosis, and loss (= G_L1).
+    F, cosis, and loss (= G_L1).  cfg.debug_nan is the trainer's to honour
+    (engine/trainer.py); the step itself ignores it, as the JAX package's
+    does.
     """
     dev = resolve_device(device)
     check_train_config(cfg)
@@ -435,3 +439,84 @@ def make_train_step(cfg: Config, device: DeviceLike = None):
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# eval step and the coarse stage
+# ---------------------------------------------------------------------------
+
+def make_eval_step(cfg: Config, device: DeviceLike = None):
+    """eval_step(state, batch) -> dict: the reference's model.test(), a
+    deterministic forward with the validation losses and per-image metrics.
+
+    `state` holds G, P and vgg (a TrainState or Models) on `device`; G and
+    P run in eval mode and come back in the mode they had.  batch as
+    make_train_step takes it.  Returns, on `device`:
+      fake_B, fake_P   [B,H,W,3] f32 (NHWC)
+      loss_ipsr        ra_gan_loss(gt, fake_B, False): the reference calls
+                       its GAN criterion with the images in place of
+                       discriminator predictions, and so does this
+      loss_valid       (L1(fake_B, gt) + L1(fake_P, gt)) * lambda_A
+      psnr, ssim       [B], per image (utils/metrics.py)
+      visuals          real_A (the zero-holed input), real_Ref, fake_B,
+                       fake_P, real_B, each [B,H,W,3]
+    The eval forward builds no attention matrix: one scan launch a call on
+    the card, no kbar.
+    """
+    from ..utils.metrics import psnr, ssim
+    dev = resolve_device(device)
+    check_config(cfg)
+    impl = check_impl(cfg.attention_impl)
+
+    @torch.inference_mode()
+    def eval_step(state, batch) -> Dict[str, object]:
+        G, P, vgg = state.G, state.P, state.vgg
+        modes = (G.training, P.training)
+        G.eval()
+        P.eval()
+        try:
+            gt = normalize_image(_as_tensor(batch["image"], dev)
+                                 ).permute(0, 3, 1, 2)
+            ref = normalize_image(_as_tensor(batch["ref"], dev)
+                                  ).permute(0, 3, 1, 2)
+            mask = resolve_mask(cfg, normalize_mask(
+                _as_tensor(batch["mask"], dev)))
+            _, flag = prepare_masks(cfg, mask)
+            fwd = two_stage_forward(G, P, gt, mask, vgg(ref).relu4_3, flag,
+                                    impl)
+        finally:
+            G.train(modes[0])
+            P.train(modes[1])
+        nhwc = lambda t: t.permute(0, 2, 3, 1)
+        return {
+            "fake_B": nhwc(fwd.fake_B), "fake_P": nhwc(fwd.fake_P),
+            "loss_ipsr": ra_gan_loss(gt, fwd.fake_B, False, cfg.gan_type),
+            "loss_valid": (l1_loss(fwd.fake_B, gt)
+                           + l1_loss(fwd.fake_P, gt)) * cfg.lambda_A,
+            "psnr": psnr(gt, fwd.fake_B), "ssim": ssim(gt, fwd.fake_B),
+            "visuals": {"real_A": nhwc(fwd.known), "real_Ref": nhwc(ref),
+                        "fake_B": nhwc(fwd.fake_B),
+                        "fake_P": nhwc(fwd.fake_P), "real_B": nhwc(gt)},
+        }
+
+    return eval_step
+
+
+def make_coarse_fn(cfg: Config, device: DeviceLike = None):
+    """coarse(P, gt, mask) -> (fake_P, composite), NHWC f32 on `device`:
+    netP alone on the mean-filled image, and its output pasted into the
+    hole.  gt and mask as make_inference_fn takes them; P must be on
+    `device` in eval mode."""
+    dev = resolve_device(device)
+    check_config(cfg)
+
+    @torch.inference_mode()
+    def coarse(P, gt, mask):
+        gt = normalize_image(_as_tensor(gt, dev)).permute(0, 3, 1, 2)
+        mask = resolve_mask(cfg, normalize_mask(_as_tensor(mask, dev)))
+        fake_P = P(M.fill_hole_with_mean(gt, mask))
+        m = mask[:, None]
+        composite = fake_P * m + gt * (1.0 - m)
+        return fake_P.permute(0, 2, 3, 1), composite.permute(0, 2, 3, 1)
+
+    return coarse

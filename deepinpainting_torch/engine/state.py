@@ -34,6 +34,10 @@ def make_optimizer(cfg: Config, net: torch.nn.Module) -> torch.optim.Adam:
                             betas=(cfg.beta1, 0.999), eps=1e-8)
 
 
+TRAINED = ("G", "P", "D", "F")          # the networks the optimisers step
+NETWORKS = TRAINED + ("vgg",)
+
+
 @dataclass
 class TrainState:
     step: int
@@ -50,6 +54,32 @@ class TrainState:
     @property
     def optimizers(self):
         return (self.opt_G, self.opt_P, self.opt_D, self.opt_F)
+
+    def state_dict(self) -> dict:
+        """Everything a resume needs: the step, the five networks'
+        state_dicts (VGG included, as the JAX package's state holds it)
+        and the four optimisers' (moments, step counts and learning
+        rate).  The tensors are the live ones, not copies."""
+        out = {"step": self.step}
+        out.update((n, getattr(self, n).state_dict()) for n in NETWORKS)
+        out.update((f"opt_{n}", getattr(self, f"opt_{n}").state_dict())
+                   for n in TRAINED)
+        return out
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Load what state_dict returned, in place; every network must
+        match it exactly (strict)."""
+        for n in NETWORKS:
+            getattr(self, n).load_state_dict(sd[n], strict=True)
+        for n in TRAINED:
+            opt = getattr(self, f"opt_{n}")
+            opt.load_state_dict(sd[f"opt_{n}"])
+            # torch's Adam keeps a loaded `step` where the file was mapped
+            # to; without capturable/fused it counts on the host (a step
+            # count on the card costs a sync a parameter every step)
+            for st in opt.state.values():
+                st["step"] = st["step"].cpu()
+        self.step = int(sd["step"])
 
 
 def create_train_state(cfg: Config, G, P, D, F, vgg) -> TrainState:

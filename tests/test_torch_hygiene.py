@@ -17,6 +17,9 @@ from deepinpainting_torch import entry as TE
 from deepinpainting_torch.config import Config
 from deepinpainting_torch.device import resolve_device
 from deepinpainting_torch.engine import inpaint as TI
+from deepinpainting_torch.engine.checkpoint import CheckpointManager
+from deepinpainting_torch.engine.evaluator import evaluate
+from deepinpainting_torch.engine.trainer import Trainer
 from deepinpainting_torch.serve.app import InferenceSession
 
 REPO = Path(__file__).resolve().parent.parent
@@ -42,6 +45,12 @@ def test_import_loads_no_jax():
         "import deepinpainting_torch.engine.state\n"
         "import deepinpainting_torch.engine.schedules\n"
         "import deepinpainting_torch.models.discriminators\n"
+        "import deepinpainting_torch.data, deepinpainting_torch._cli\n"
+        "import deepinpainting_torch.engine.trainer\n"
+        "import deepinpainting_torch.engine.evaluator\n"
+        "import deepinpainting_torch.engine.checkpoint\n"
+        "import deepinpainting_torch.utils.profiling\n"
+        "import deepinpainting_torch.utils.params\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -61,6 +70,12 @@ def test_sources_import_no_jax():
     offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
                  for f in files for m in pattern.finditer(f.read_text())]
     assert not offenders, offenders
+    # the data pipeline runs in spawned loader workers: no torch at module
+    # level there (device_batches imports it inside the function)
+    top_torch = re.compile(r"^(?:import|from)\s+torch\b", re.MULTILINE)
+    data = sorted((PORT / "data").glob("*.py"))
+    assert len(data) >= 3
+    assert not [f.name for f in data if top_torch.search(f.read_text())]
 
 
 @pytest.fixture
@@ -68,8 +83,9 @@ def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_refuse_to_fall_back_to_cpu(no_card):
+def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
     gen = torch.Generator().manual_seed(0)
+    ckpt_cfg = TINY.replace(checkpoints_dir=str(tmp_path))
     calls = [
         lambda: resolve_device(),
         lambda: resolve_device("cuda"),
@@ -81,6 +97,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card):
         lambda: TI.make_serving_fn(TINY),
         lambda: InferenceSession(TINY),
         lambda: TE.entry(cfg=TINY),
+        lambda: TI.make_eval_step(TINY),
+        lambda: TI.make_coarse_fn(TINY),
+        lambda: Trainer(ckpt_cfg, None),
+        lambda: evaluate(TINY, None, None),
+        lambda: CheckpointManager(ckpt_cfg).restore(1, None),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -106,7 +127,7 @@ def test_unported_options_are_refused():
             TI.build_models(TINY.replace(**kw))
     # training options left for later, each refused by its name
     gen = torch.Generator().manual_seed(0)
-    for kw in (dict(grad_accum=2), dict(remat=True), dict(debug_nan=True),
+    for kw in (dict(grad_accum=2), dict(remat=True),
                dict(dtype="bfloat16"), dict(quant="int8")):
         name = next(iter(kw))
         with pytest.raises(NotImplementedError, match=name):
@@ -115,8 +136,11 @@ def test_unported_options_are_refused():
             TI.create_state(TINY.replace(**kw), gen, "cpu")
     with pytest.raises(ValueError, match="gan_type"):
         TI.make_train_step(TINY.replace(gan_type="hinge"), "cpu")
-    # norm='batch' is ported: it builds
+    # norm='batch' is ported: it builds; debug_nan is the trainer's guard,
+    # and the step builds with it
     TI.build_models(TINY.replace(norm="batch"))
+    TI.make_train_step(TINY.replace(debug_nan=True), "cpu")
+    TI.create_state(TINY.replace(debug_nan=True), gen, "cpu")
 
 
 def _run_smoke(cwd):

@@ -412,7 +412,7 @@ def test_training_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(grad_accum=2), dict(remat=True), dict(debug_nan=True),
+    dict(grad_accum=2), dict(remat=True),
     dict(dtype="bfloat16"), dict(quant="int8"),
     dict(pack_out=True)])
 def test_options_left_for_later_are_refused_by_name(kw):
@@ -423,6 +423,15 @@ def test_options_left_for_later_are_refused_by_name(kw):
                      tcfg, torch.Generator().manual_seed(0), "cpu")):
         with pytest.raises(NotImplementedError, match=name):
             make()
+
+
+def test_debug_nan_builds():
+    """debug_nan is the trainer's NaN guard (engine/trainer.py); the step
+    ignores it, as the JAX package's does."""
+    _, tcfg = configs(**dict(FIELDS, debug_nan=True))
+    TI.make_train_step(tcfg, "cpu")
+    state = TI.create_state(tcfg, torch.Generator().manual_seed(0), "cpu")
+    assert state.step == 0
 
 
 def test_unknown_gan_type_is_refused():
