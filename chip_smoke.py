@@ -35,7 +35,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      epoch 3, evaluate() on the validation images, and evaluate() with the
      kernels against the plain versions at phase 4's small hole; then
      trainer img/s beside the bare step's, checkpoint and restore times,
-     the loader alone, evaluate img/s and a profile of one epoch.
+     the loader alone, evaluate img/s and a profile of one epoch;
+  8. the precision and memory options at 512 px, full width, batch 8, both
+     kernels at N=4096: (a) bf16 with remat at depth 1 (the JAX package's
+     512 px training configuration), (b) f32 without remat, (c) f32 with
+     grad_accum=2, each three (two) steps with ms a step, peak memory and
+     launches; (d) (a)'s first step with the kernels against the plain
+     versions at a small hole, and the recompute's kbar against the
+     forward's bit for bit; (e) bf16 serving at 256 and 512 px; (f) both
+     kernels timed at N=4096, B=1 and B=8, center hole.
 Three lines end the output, each on its own: a JSON object with a `kernels`
 list, the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -68,6 +76,7 @@ TRAIN_STEPS = 3        # counted and checked
 TIMED_STEPS = 5        # more steps after those, for a steadier median
 TRAIN_BATCH = 8
 SCAN_C = 512           # attention channels at the default width (8*ngf)
+P8_SIZE = 512          # phase 8: N = (512/8)^2 = 4096 attention positions
 
 
 def log(msg: str) -> None:
@@ -486,6 +495,277 @@ def training_program(dev, card: str, bare_img_s: float, center, strokes,
         return {"trainer": trainer_launches, "evaluate": eval_launches}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def step_launches(cfg) -> dict:
+    """Kernel launches one train step of `cfg` makes: a scan and a kbar for
+    each differentiated forward, and once more for each recompute of a
+    checkpointed netG level that encloses the attention level (levels
+    0-3); with grad_accum k, k such forwards (the G phase) and k more scans
+    (the D phase's forwards without a graph)."""
+    k = max(1, cfg.grad_accum)
+    enclosing = (0 if not cfg.remat else 4 if cfg.remat_depth == 0
+                 else min(cfg.remat_depth, 4))
+    builds = k * (1 + enclosing)
+    return {"scan_stream": builds + (k if k > 1 else 0), "kbar_build": builds}
+
+
+def precision_and_memory(dev, card: str, base, models256, phase6: dict,
+                         small_px: int = 24, serve_requests: int = 32,
+                         kernel_batches=(1, 8)) -> dict:
+    """Phase 8: the precision and memory options at `base`'s size (512 px,
+    full width, batch 8 on the card) through create_state /
+    make_train_step: (a) bf16 with remat at depth 1, (b) the f32 baseline
+    without remat, (c) f32 with grad_accum=2; (d) the first step of (a)
+    with the kernels against the plain versions at a hole of at most 9
+    positions, and the recompute's kbar against the forward's; (e) bf16
+    serving through InferenceSession at 256 px (with phase 3's weights)
+    and at base's size; (f) both kernels at N = (size/8)^2 at the center
+    hole.  Returns the launches of each path and the kernels' times."""
+    import torch
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.ops import attention as TA
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.serve.app import InferenceSession
+
+    s, b = base.fine_size, base.batch_size
+    rng = np.random.default_rng(8)
+
+    def center(n, size=s):
+        m = np.zeros((n, size, size), np.uint8)
+        lo, hi = size // 4 + base.overlap, 3 * size // 4 - base.overlap
+        m[:, lo:hi, lo:hi] = 1
+        return m
+
+    def image(n, size=s):
+        return rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+
+    def batch(mask):
+        return {"image": image(b), "ref": image(b), "mask": mask}
+
+    batches = [batch(center(b)) for _ in range(3)]
+
+    def counts():
+        return {"scan_stream": TAC.launches,
+                "kbar_build": TAC.kbar_launches}
+
+    def train(label, cfg, n_steps):
+        """n_steps steps from fresh weights (seed 0): ms a step (host clock
+        ending in synchronize(), median after the first), peak allocated
+        memory, launches (checked against step_launches)."""
+        state = TI.create_state(cfg, torch.Generator().manual_seed(cfg.seed),
+                                dev)
+        step = TI.make_train_step(cfg, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        TAC.launches = TAC.kbar_launches = 0   # counts: this path only
+        ms = []
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batches[i % len(batches)])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            values = {k: v.item() for k, v in metrics.items()}
+            check(all(np.isfinite(v) for v in values.values())
+                  and all(v.dtype == torch.float32 for v in metrics.values()),
+                  f"{label} step {i + 1}: metrics must be finite f32")
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: v * n_steps for k, v in step_launches(cfg).items()}
+        steady = statistics.median(ms[1:]) if n_steps > 1 else ms[0]
+        log(f"phase 8 {label}: {s} px B={b}, {n_steps} steps, "
+            f"{steady:.1f} ms a step (median after the first; steps "
+            + " / ".join(f"{x:.1f}" for x in ms) + f" ms), "
+            f"{b / steady * 1e3:.2f} img/s, peak allocated "
+            f"{peak / 2 ** 30:.2f} GiB ({peak} B), launches {launches} "
+            f"(expected {want}), last metrics {values}  [{card}]")
+        check(launches == want, f"{label}: launches {launches} != {want}")
+        return state, step, {"ms": steady, "peak": peak,
+                             "launches": launches}
+
+    paths, results = {}, {}
+    # ---- (a) the 512 px training configuration: bf16, remat depth 1 ----
+    cfg_a = base.replace(dtype="bfloat16", remat=True, remat_depth=1)
+    state, step, results["a"] = train("(a) bf16 remat depth 1", cfg_a, 3)
+    paths["train512_bf16_remat"] = results["a"]["launches"]
+    # the recompute's kbar against the forward's, outside the counts
+    kbars, core = [], TA.attention_core_batched
+
+    def spy(*a, **kw):
+        out, kbar = core(*a, **kw)
+        kbars.append(kbar)
+        return out, kbar
+
+    TA.attention_core_batched = spy
+    try:
+        step(state, batches[0])
+    finally:
+        TA.attention_core_batched = core
+    torch.cuda.synchronize()
+    same = len(kbars) == 2 and torch.equal(kbars[0], kbars[1])
+    log(f"phase 8 (a) recompute: {len(kbars)} kbar builds in a step, the "
+        f"recompute's equal to the forward's bit for bit: {same}")
+    check(same, "the recompute must build the forward's kbar bit for bit")
+    del kbars
+    profile_calls(f"train steps at {s} px, B={b}, bf16, remat depth 1",
+                  [lambda: step(state, batches[1])], card)
+    del state, step
+    torch.cuda.empty_cache()
+
+    # ---- (b) the f32 baseline, no remat ----
+    cfg_b = base.replace(dtype="float32", remat=False)
+    state, step, results["b"] = train("(b) f32, no remat", cfg_b, 3)
+    paths["train512_f32"] = results["b"]["launches"]
+    profile_calls(f"train steps at {s} px, B={b}, f32",
+                  [lambda: step(state, batches[1])], card)
+    del state, step
+    torch.cuda.empty_cache()
+
+    # ---- (c) f32 with grad_accum=2 ----
+    cfg_c = base.replace(dtype="float32", grad_accum=2)
+    state, step, results["c"] = train("(c) f32, grad_accum 2", cfg_c, 2)
+    paths["train512_accum2"] = results["c"]["launches"]
+    del state, step
+    torch.cuda.empty_cache()
+    ra, rb = results["a"], results["b"]
+    log(f"phase 8 (a) against (b): {ra['ms'] / rb['ms']:.3f} of the time, "
+        f"{ra['peak'] / rb['peak']:.3f} of the peak memory  [{card}]")
+
+    # ---- (d) (a)'s first step, kernels against plain versions ----
+    small = np.zeros((b, s, s), np.uint8)
+    y0, x0 = 3 * s // 8, 7 * s // 32
+    small[:, y0:y0 + small_px, x0:x0 + small_px] = 1
+    n_small = int(TI.prepare_masks(base, torch.from_numpy(small[:1]).float()
+                                   )[1].sum().item())
+    check(1 <= n_small <= 9, f"small hole has {n_small} masked positions")
+    small_batch = batch(small)
+    losses = {}
+    for impl in ("cuda", "torch"):
+        icfg = cfg_a.replace(attention_impl=impl)
+        fresh = TI.create_state(icfg, torch.Generator().manual_seed(0), dev)
+        _, m = TI.make_train_step(icfg, dev)(fresh, small_batch)
+        losses[impl] = {k: v.item() for k, v in m.items()}
+        del fresh
+    torch.cuda.empty_cache()
+    d_step = max(abs(losses["cuda"][k] - losses["torch"][k])
+                 / max(abs(losses["torch"][k]), 1e-12) for k in losses["cuda"])
+    log(f"phase 8 (d) first bf16 remat step at a {n_small}-position hole, "
+        f"kernels vs plain versions: max relative loss difference "
+        f"{d_step:.3e} (limit {STEP_TOL}); kernels {losses['cuda']}")
+    check(d_step <= STEP_TOL, "bf16 remat step, kernels vs plain versions")
+
+    # ---- (e) bf16 serving ----
+    serving = {}
+    for size, models in ((256, models256), (s, None)):
+        scfg = base.replace(fine_size=size, dtype="bfloat16", batch_size=1)
+        if models is None:
+            models = TI.init_params(scfg, torch.Generator().manual_seed(0),
+                                    dev)
+        single = InferenceSession(scfg, state=models, device=dev)
+        batched = InferenceSession(scfg, state=models, device=dev,
+                                   max_batch=8, batch_wait_ms=50.0)
+        f32 = InferenceSession(scfg.replace(dtype="float32"), state=models,
+                               device=dev)
+        req = (image(1, size), center(1, size), image(1, size))
+        single.run(*req)
+        TAC.launches = TAC.kbar_launches = 0  # counts: bf16 serving only
+        lat = []
+        for i in range(11 if size == s else 21):
+            t0 = time.perf_counter()
+            out = single.run(image(1, size), center(1, size), image(1, size))
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(out.dtype == np.uint8 and out.shape == (1, size, size, 3)
+                  and out.std() > 0, "bf16 serving: uint8, not constant")
+        n_req = serve_requests if size == 256 else serve_requests // 2
+        reqs = [(image(1, size), center(1, size), image(1, size))
+                for _ in range(n_req)]
+        results_ = [None] * n_req
+        calls0 = batched.calls
+
+        def client(k):
+            for i in range(k, n_req, 8):
+                results_[i] = batched.run(*reqs[i])
+
+        t0 = time.perf_counter()
+        ws = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+        for t in ws:
+            t.start()
+        for t in ws:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = counts()
+        forwards = len(lat) + batched.calls - calls0
+        check(not any(t.is_alive() for t in ws)
+              and all(r is not None and r.shape == (1, size, size, 3)
+                      for r in results_), "bf16 batched requests")
+        check(launches == {"scan_stream": forwards, "kbar_build": 0},
+              "bf16 serving: one scan launch a netG forward, no kbar")
+        d = np.abs(single.run(*req).astype(np.int16)
+                   - f32.run(*req).astype(np.int16))
+        p50 = statistics.median(lat[1:])
+        serving[size] = {"p50": p50, "img_s": n_req / wall,
+                         "launches": launches}
+        ref6 = (f"; phase 6 f32: b1 p50 {phase6['p50']:.2f} ms, b8 "
+                f"{phase6['img_s']:.2f} img/s" if size == 256 else "")
+        log(f"phase 8 (e) bf16 serving {size} px: b1 request p50 "
+            f"{p50:.2f} ms ({len(lat) - 1} requests), b8 throughput "
+            f"{n_req / wall:.2f} img/s ({n_req} requests over 8 clients, "
+            f"{batched.calls - calls0} batched calls), launches {launches}; "
+            f"uint8 result against f32 serving: mean |d| {d.mean():.3f}, "
+            f"max {d.max()} levels{ref6}  [{card}]")
+        if size == 256:
+            profile_calls(f"bf16 b1 requests at {size} px",
+                          [lambda: single.run(*req) for _ in range(5)], card)
+        for sess in (single, batched, f32):
+            sess.close()
+        paths[f"serving_bf16_{size}"] = launches
+        del models
+    torch.cuda.empty_cache()
+
+    # ---- (f) both kernels at N = (s/8)^2, center hole ----
+    side = s // 8
+    cflag = TI.prepare_masks(base, torch.from_numpy(center(1)).float())[1]
+    timings = {}
+    for kb in kernel_batches:
+        crng = np.random.default_rng(40 + kb)
+        feat = torch.from_numpy(crng.standard_normal(
+            (kb, side * side, SCAN_C)).astype(np.float32)).to(dev)
+        refr = torch.from_numpy(np.abs(crng.standard_normal(
+            (kb, side * side, SCAN_C))).astype(np.float32)).to(dev)
+        flag = cflag.to(dev).expand(kb, -1).contiguous()
+        _, pn, ind, vmax, known = TA.prep(feat, refr, flag, True)
+        args = (flag, vmax.contiguous(), pn.contiguous(), known.contiguous())
+        bound = scan_bound(flag, SCAN_C)
+        scan = lambda: TAC.scan_stream_cuda(*args)
+        row = {"scan_stream": dict(
+            ms=cuda_ms_back_to_back(scan), single_ms=cuda_ms(scan, reps=30),
+            plain_ms=cuda_ms(lambda: TA.scan_stream_reference(*args),
+                             reps=3, warmup=1), **bound)}
+        _, ka, kb_ = scan()
+        kargs = (flag, ind.contiguous(), ka, kb_)
+        build = lambda: TAC.kbar_build_cuda(*kargs)
+        row["kbar_build"] = dict(
+            ms=cuda_ms_back_to_back(build), single_ms=cuda_ms(build, reps=30),
+            plain_ms=cuda_ms(lambda: TA.kbar_build_reference(*kargs),
+                             reps=3, warmup=1),
+            **kbar_bound(kb, side * side, ind.element_size()))
+        timings[kb] = row
+        m = bound["masked"] // kb
+        for name, t in row.items():
+            log(f"phase 8 (f) {name} B={kb} N={side * side} C={SCAN_C} "
+                f"center hole ({m} masked rows a sample): kernel "
+                f"{t['single_ms']:.4f} ms single launch, {t['ms']:.4f} ms a "
+                f"launch back to back, plain {t['plain_ms']:.2f} ms, bound "
+                f"{t['bound_ms']:.5f} ms ({t['bound_by']}: {t['bytes']} B, "
+                f"{t['ops']} ops), share {t['bound_ms'] / t['ms']:.2%} (back "
+                f"to back)" + (f", {t['ms'] / m * 1e6:.1f} ns a masked step"
+                               if name == "scan_stream" else "")
+                + f", library call: none  [{card}]")
+        del feat, refr, flag, pn, ind, vmax, known, args, kargs, ka, kb_
+    torch.cuda.empty_cache()
+    return {"paths": paths, "timings": timings, "train": results,
+            "serving": serving}
 
 
 def main() -> int:
@@ -1028,22 +1308,35 @@ def main() -> int:
         f"batched calls)  [{card}]")
     single.close()
     batched.close()
+    phase6 = {"p50": p50, "img_s": n_req / wall}
 
     # ---- phase 7: the training program at full width ----------------------
     program_launches = training_program(
         dev, card, TRAIN_BATCH / steady * 1e3, center, strokes, small,
         n_small)
 
+    # ---- phase 8: bf16, remat and grad_accum at 512 px, N=4096 ------------
+    p8 = precision_and_memory(
+        dev, card, Config(fine_size=P8_SIZE, batch_size=TRAIN_BATCH), models,
+        phase6)
+
     # `launches` sums the main paths (serving, the train step, the trainer,
-    # evaluate); the
-    # times are those at B=8, N=1024, the shapes a train step gives both:
-    # `ms` a launch of 20 back to back, `single_launch_ms` the median of
-    # single launches, each between its own pair of events.
+    # evaluate, and phase 8's bf16 / remat / grad_accum paths); the
+    # times are those at B=8, N=1024, the shapes a 256 px train step gives
+    # both: `ms` a launch of 20 back to back, `single_launch_ms` the median
+    # of single launches, each between its own pair of events.  `n4096`
+    # holds the same at N=4096 (512 px), B=1 and B=8, center hole.
     t8, k8 = timings[8], kbar_timings[8]
     by_path = lambda name: {"serving": launches[name],
                             "training": train_launches[name],
                             "trainer": program_launches["trainer"][name],
-                            "evaluate": program_launches["evaluate"][name]}
+                            "evaluate": program_launches["evaluate"][name],
+                            **{path: n[name]
+                               for path, n in p8["paths"].items()}}
+    n4096 = lambda name: {
+        f"B{b}": {k: t[name][k] for k in ("ms", "single_ms", "plain_ms",
+                                          "bound_ms", "bound_by")}
+        for b, t in p8["timings"].items()}
     print(json.dumps({"kernels": [{
         "name": "scan_stream", "route": "cuda",
         "source": "deepinpainting_torch/csrc/scan_stream.cu",
@@ -1054,7 +1347,7 @@ def main() -> int:
         "ms": t8["ms"], "single_launch_ms": t8["single_ms"],
         "plain_ms": t8["plain_ms"],
         "bound_ms": t8["bound_ms"], "bound_by": t8["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "n4096": n4096("scan_stream")}, {
         "name": "kbar_build", "route": "cuda",
         "source": "deepinpainting_torch/csrc/kbar_build.cu",
         "replaces": "deepinpainting_tpu/ops/attention_pallas.py:186",
@@ -1064,7 +1357,7 @@ def main() -> int:
         "ms": k8["ms"], "single_launch_ms": k8["single_ms"],
         "plain_ms": k8["plain_ms"],
         "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None, "n4096": n4096("kbar_build")}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

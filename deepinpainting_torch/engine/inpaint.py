@@ -19,6 +19,15 @@ Data flow, as the JAX package's:
                With norm='batch' every train-mode forward moves its
                BatchNorm running statistics: G's and P's once a step, D's
                four times (fake then real, in both phases).
+  dtype      : cfg.dtype='bfloat16' casts the inputs of netP and netG (and
+               the reference feature) to bf16 at this boundary and their
+               outputs and taps back to f32, so losses and metrics stay
+               f32; parameters and Adam stay f32.  VGG runs in bf16 only in
+               the inference function, as the JAX package's.
+  remat      : cfg.remat checkpoints the remat_depth outermost U-Net levels
+               (models/remat.py); the step's results are those without it.
+  grad_accum : k > 1 splits the batch into k microbatches
+               (_make_accum_train_step).
 
 The public functions take and return the JAX layout (NHWC images, [B,H,W]
 masks) so the two packages compare like with like; images go to NCHW once
@@ -43,7 +52,8 @@ from ..models.unet_ipsr import UnetGeneratorIPSR
 from ..models.vgg16 import Vgg16
 from ..ops import masks as M
 from ..ops.attention import check_impl
-from ..ops.convs import INIT_TYPES, NORMS, InstanceNorm, init_weight_
+from ..ops.convs import (INIT_TYPES, NORMS, InstanceNorm,
+                         frozen_running_stats, init_weight_)
 from .state import TrainState, create_train_state
 
 
@@ -58,6 +68,14 @@ class Discriminators(NamedTuple):
     """What training adds."""
     D: NLayerDiscriminator
     F: PFDiscriminator
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    """The activation dtype of netP and netG (cfg.dtype)."""
+    return COMPUTE_DTYPES[cfg.dtype]
 
 
 def check_config(cfg: Config) -> int:
@@ -84,12 +102,15 @@ def check_config(cfg: Config) -> int:
             "(only 'none' and 'int8' are supported)")
     # Options the JAX package has and the port does not run yet.
     for name, value, ok in (("quant", cfg.quant, "none"),
-                            ("dtype", cfg.dtype, "float32"),
                             ("pack_small_cin", cfg.pack_small_cin, False),
                             ("pack_out", cfg.pack_out, False)):
         if value != ok:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet (port runs {ok!r})")
+    if cfg.dtype not in COMPUTE_DTYPES:
+        raise NotImplementedError(
+            f"dtype={cfg.dtype!r} is not ported (port runs "
+            f"{' or '.join(map(repr, COMPUTE_DTYPES))})")
     check_impl(cfg.attention_impl)
     num_downs = max(6, int(math.log2(cfg.fine_size)))
     if cfg.fine_size < 2 ** 6:
@@ -105,20 +126,13 @@ def check_config(cfg: Config) -> int:
 
 
 def check_train_config(cfg: Config) -> None:
-    """check_config, plus a refusal of the training options the port does
-    not run yet."""
+    """check_config, plus the training options' checks."""
     if cfg.quant != "none":
         # gradients through round() are zero: int8 is inference-only
         raise NotImplementedError(
             f"quant={cfg.quant!r} is inference-only; training runs full "
             "precision")
     check_config(cfg)
-    for name, value, ok in (("grad_accum", cfg.grad_accum, 1),
-                            ("remat", cfg.remat, False)):
-        if value != ok:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (port trains with "
-                f"{ok!r})")
     if cfg.gan_type not in ("lsgan", "wgan_gp", "vanilla"):
         raise ValueError(f"unknown gan_type {cfg.gan_type!r}")
 
@@ -133,10 +147,12 @@ def build_models(cfg: Config) -> Models:
                             known_replacement=cfg.faithful_known_replacement,
                             triple_weight=cfg.triple_weight,
                             truncate_backward=cfg.faithful_backward_truncation,
-                            norm=cfg.norm),
+                            norm=cfg.norm, remat=cfg.remat,
+                            remat_depth=cfg.remat_depth),
         P=UnetGenerator(input_nc=cfg.input_nc, output_nc=cfg.output_nc,
                         num_downs=num_downs, ngf=cfg.ngf,
-                        use_dropout=cfg.use_dropout, norm=cfg.norm),
+                        use_dropout=cfg.use_dropout, norm=cfg.norm,
+                        remat=cfg.remat, remat_depth=cfg.remat_depth),
         vgg=Vgg16(cfg.vgg_width_scale),
     )
 
@@ -274,18 +290,23 @@ def two_stage_forward(G: UnetGeneratorIPSR, P: UnetGenerator,
                       gt: torch.Tensor, mask: torch.Tensor,
                       ref_feat: torch.Tensor, flag: torch.Tensor,
                       attention_impl=None,
-                      generator: Optional[torch.Generator] = None
-                      ) -> ForwardOut:
+                      generator: Optional[torch.Generator] = None,
+                      dtype: torch.dtype = torch.float32) -> ForwardOut:
     """Two-stage forward on NCHW images: gt [B,3,H,W], mask [B,H,W],
     ref_feat [B,8ngf,H/8,W/8], flag [B,(H/8)*(W/8)].  Train or eval is the
-    networks' own mode; `generator` feeds the dropout in train mode."""
+    networks' own mode; `generator` feeds the dropout in train mode.
+    `dtype` is the networks' compute dtype: their inputs are cast to it,
+    fake_P, fake_B and the taps come back in f32."""
     masked_mean = M.fill_hole_with_mean(gt, mask)
-    fake_P = P(masked_mean, generator)
+    fake_P = P(masked_mean.to(dtype), generator).to(torch.float32)
     known = M.zero_hole(gt, mask)
     syn = fake_P.detach() * mask[:, None] + known
     middle = torch.cat([syn, known], dim=1)
-    fake_B, taps = G(middle, ref_feat, flag, attention_impl, generator)
-    return ForwardOut(fake_P, fake_B, taps, masked_mean, known, syn)
+    fake_B, taps = G(middle.to(dtype), ref_feat.to(dtype), flag,
+                     attention_impl, generator)
+    return ForwardOut(fake_P, fake_B.to(torch.float32),
+                      {k: v.to(torch.float32) for k, v in taps.items()},
+                      masked_mean, known, syn)
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
@@ -302,6 +323,7 @@ def make_inference_fn(cfg: Config, device: DeviceLike = None):
     dev = resolve_device(device)
     check_config(cfg)
     impl = check_impl(cfg.attention_impl)
+    dt = compute_dtype(cfg)
 
     @torch.inference_mode()
     def infer(G, P, vgg, gt, mask, ref):
@@ -309,8 +331,10 @@ def make_inference_fn(cfg: Config, device: DeviceLike = None):
         ref = normalize_image(_as_tensor(ref, dev)).permute(0, 3, 1, 2)
         mask = resolve_mask(cfg, normalize_mask(_as_tensor(mask, dev)))
         _, flag = prepare_masks(cfg, mask)
-        ref_feat = vgg(ref).relu4_3
-        fwd = two_stage_forward(G, P, gt, mask, ref_feat, flag, impl)
+        # inference only: VGG runs in the compute dtype too
+        ref_feat = vgg(ref.to(dt)).relu4_3
+        fwd = two_stage_forward(G, P, gt, mask, ref_feat, flag, impl,
+                                dtype=dt)
         return (fwd.fake_B.permute(0, 2, 3, 1),
                 fwd.fake_P.permute(0, 2, 3, 1))
 
@@ -346,6 +370,54 @@ def _apply_grads(opt: torch.optim.Optimizer, params, grads) -> None:
     opt.step()
 
 
+def _batch_inputs(cfg: Config, batch, dev: torch.device):
+    """A train batch on `dev`: (gt, ref) NCHW in [-1, 1], mask [B,H,W],
+    feat_mask and flag."""
+    gt = normalize_image(_as_tensor(batch["image"], dev)).permute(0, 3, 1, 2)
+    ref = normalize_image(_as_tensor(batch["ref"], dev)).permute(0, 3, 1, 2)
+    mask = resolve_mask(cfg, normalize_mask(_as_tensor(batch["mask"], dev)))
+    fmask, flag = prepare_masks(cfg, mask)
+    return gt, ref, mask, fmask, flag
+
+
+def _d_losses(cfg: Config, D, F, fake_B, gt, fake_feat, real_feat):
+    """The D/F phase's losses on the detached fake_B: D runs fake then
+    real, the order its BatchNorm statistics chain in."""
+    loss_D_img = ra_gan_loss(D(fake_B), D(gt), True, cfg.gan_type)
+    loss_F_feat = ra_gan_loss(F(fake_feat), F(real_feat), True, cfg.gan_type)
+    return loss_D_img, loss_F_feat
+
+
+def _g_losses(cfg: Config, D, F, fwd: ForwardOut, gt, fake_feat, vgg_gt,
+              fmask):
+    """The G/P phase's losses against the (updated) discriminators:
+    (loss_G, G_GAN, G_L1, cosis).  D on the real image and the whole
+    feature branch (VGG of the detached fake_B) are constants with respect
+    to G and P, so they run without a graph; autograd.grad on G's and P's
+    parameters alone leaves no gradient on D and F.  D still runs fake then
+    real."""
+    pred_fake = D(fwd.fake_B)
+    with torch.no_grad():
+        pred_real = D(gt)
+        loss_G_feat = ra_gan_loss(F(fake_feat), F(vgg_gt.relu3_3), False,
+                                  cfg.gan_type)
+    loss_G_GAN = ra_gan_loss(pred_fake, pred_real, False,
+                             cfg.gan_type) + loss_G_feat
+    loss_G_L1 = (l1_loss(fwd.fake_B, gt)
+                 + l1_loss(fwd.fake_P, gt)) * cfg.lambda_A
+    loss_G = loss_G_L1 + loss_G_GAN * cfg.gan_weight
+    cos = torch.zeros((), device=gt.device)
+    if cfg.cosis and not cfg.skip:
+        cos = (inner_cos_loss(fwd.taps["inner_cos"], fmask, vgg_gt.relu4_3,
+                              cfg.strength)
+               + inner_cos_loss(fwd.taps["inner_cos2"], fmask,
+                                vgg_gt.relu4_3, cfg.strength))
+        if cfg.faithful_detached_cosis:
+            cos = cos.detach()
+        loss_G = loss_G + cos
+    return loss_G, loss_G_GAN, loss_G_L1, cos
+
+
 def make_train_step(cfg: Config, device: DeviceLike = None):
     """train_step(state, batch, generator=None) -> (state, metrics): one
     optimisation step of all four networks, D and F first, then G and P
@@ -359,42 +431,38 @@ def make_train_step(cfg: Config, device: DeviceLike = None):
     step applied.  metrics: 0-dim f32 tensors on `device` — G_GAN, G_L1, D,
     F, cosis, and loss (= G_L1).  cfg.debug_nan is the trainer's to honour
     (engine/trainer.py); the step itself ignores it, as the JAX package's
-    does.
+    does.  cfg.dtype and cfg.remat apply through two_stage_forward and the
+    U-Nets; cfg.grad_accum > 1 gives _make_accum_train_step's step.
     """
     dev = resolve_device(device)
     check_train_config(cfg)
     impl = check_impl(cfg.attention_impl)
+    dt = compute_dtype(cfg)
+    if cfg.grad_accum > 1:
+        return _make_accum_train_step(cfg, dev, impl, dt)
 
     def train_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
         G, P, D, F, vgg = state.G, state.P, state.D, state.F, state.vgg
         for net in (G, P, D, F):
             net.train()
-        gt = normalize_image(_as_tensor(batch["image"], dev)
-                             ).permute(0, 3, 1, 2)
-        ref = normalize_image(_as_tensor(batch["ref"], dev)
-                              ).permute(0, 3, 1, 2)
-        mask = resolve_mask(cfg, normalize_mask(_as_tensor(batch["mask"],
-                                                           dev)))
-        fmask, flag = prepare_masks(cfg, mask)
+        gt, ref, mask, fmask, flag = _batch_inputs(cfg, batch, dev)
         with torch.no_grad():
             vgg_ref = vgg(ref)
             vgg_gt = vgg(gt)
-        gt_target = vgg_gt.relu4_3
 
         # One forward for the whole step: the D phase sees the detached
         # fake_B, the G phase differentiates through this same graph.
         fwd = two_stage_forward(G, P, gt, mask, vgg_ref.relu4_3, flag, impl,
-                                generator)
+                                generator, dt)
         fake_B_const = fwd.fake_B.detach()
         with torch.no_grad():
             # only relu3_3 of the fake image is consumed (netF's input)
             fake_feat = vgg(fake_B_const, upto=3).relu3_3
 
         # ---- D / F phase ----
-        loss_D_img = ra_gan_loss(D(fake_B_const), D(gt), True, cfg.gan_type)
-        loss_F_feat = ra_gan_loss(F(fake_feat), F(vgg_gt.relu3_3), True,
-                                  cfg.gan_type)
+        loss_D_img, loss_F_feat = _d_losses(cfg, D, F, fake_B_const, gt,
+                                            fake_feat, vgg_gt.relu3_3)
         params_D, params_F = list(D.parameters()), list(F.parameters())
         # autograd.grad frees the D-phase graph, so the in-place optimiser
         # steps below invalidate no tensor saved for a later backward.
@@ -404,30 +472,8 @@ def make_train_step(cfg: Config, device: DeviceLike = None):
         _apply_grads(state.opt_F, params_F, grads[len(params_D):])
 
         # ---- G / P phase, against the updated discriminators ----
-        # D on the real image and the whole feature branch (VGG of the
-        # detached fake_B) are constants with respect to G and P, so they
-        # run without a graph; autograd.grad on G's and P's parameters
-        # alone leaves no gradient on D and F.  D still runs fake then
-        # real, the order its BatchNorm statistics chain in.
-        pred_fake = D(fwd.fake_B)
-        with torch.no_grad():
-            pred_real = D(gt)
-            loss_G_feat = ra_gan_loss(F(fake_feat), F(vgg_gt.relu3_3), False,
-                                      cfg.gan_type)
-        loss_G_GAN = ra_gan_loss(pred_fake, pred_real, False,
-                                 cfg.gan_type) + loss_G_feat
-        loss_G_L1 = (l1_loss(fwd.fake_B, gt)
-                     + l1_loss(fwd.fake_P, gt)) * cfg.lambda_A
-        loss_G = loss_G_L1 + loss_G_GAN * cfg.gan_weight
-        cos = torch.zeros((), device=dev)
-        if cfg.cosis and not cfg.skip:
-            cos = (inner_cos_loss(fwd.taps["inner_cos"], fmask, gt_target,
-                                  cfg.strength)
-                   + inner_cos_loss(fwd.taps["inner_cos2"], fmask, gt_target,
-                                    cfg.strength))
-            if cfg.faithful_detached_cosis:
-                cos = cos.detach()
-            loss_G = loss_G + cos
+        loss_G, loss_G_GAN, loss_G_L1, cos = _g_losses(
+            cfg, D, F, fwd, gt, fake_feat, vgg_gt, fmask)
         params_G, params_P = list(G.parameters()), list(P.parameters())
         grads = torch.autograd.grad(loss_G, params_G + params_P)
         _apply_grads(state.opt_G, params_G, grads[:len(params_G)])
@@ -437,6 +483,120 @@ def make_train_step(cfg: Config, device: DeviceLike = None):
         metrics = {"G_GAN": loss_G_GAN, "G_L1": loss_G_L1, "D": loss_D_img,
                    "F": loss_F_feat, "cosis": cos, "loss": loss_G_L1}
         return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def _dropout_generator(dev: torch.device,
+                       generator: Optional[torch.Generator]
+                       ) -> torch.Generator:
+    """The generator the dropout draws from: `generator`, or the device's
+    default one when it is None."""
+    if generator is not None:
+        return generator
+    if dev.type == "cuda":
+        index = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        return torch.cuda.default_generators[index]
+    return torch.default_generator
+
+
+def _accumulate(acc, grads):
+    if acc is None:
+        return list(grads)
+    for a, g in zip(acc, grads):
+        a.add_(g)
+    return acc
+
+
+def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
+                           dt: torch.dtype):
+    """The gradient-accumulated train step (cfg.grad_accum = k > 1), as the
+    JAX package's _make_accum_train_step states it: the batch splits into
+    k microbatches, and only one microbatch's activations live at a time.
+
+      D phase  for each microbatch: VGG of gt to relu3_3, a train-mode
+               forward without a graph (so the attention takes its kbar-free
+               primal), D fake then real; the D and F gradients are summed,
+               divided by k, and D and F step.
+      G phase  each microbatch's forward again, with the dropout draw of
+               its D-phase forward, against the updated D and F; the G and
+               P gradients are summed, divided by k, and G and P step.
+    The metrics are the means over the microbatches (D and F from the D
+    phase, the rest from the G phase).  With norm='batch' G's and P's
+    running statistics move in the D phase only (the G phase's forwards
+    repeat those, under frozen_running_stats), and D's chain fake -> real
+    per microbatch in the D phase and twice more per microbatch in the G
+    phase.  The relativistic GAN losses take batch means inside, so the
+    step is not the same function as one step on the whole batch.
+    """
+    k = cfg.grad_accum
+
+    def train_step(state: TrainState, batch,
+                   generator: Optional[torch.Generator] = None):
+        G, P, D, F, vgg = state.G, state.P, state.D, state.F, state.vgg
+        for net in (G, P, D, F):
+            net.train()
+        inputs = _batch_inputs(cfg, batch, dev)
+        b = inputs[0].shape[0]
+        if b % k:
+            raise ValueError(
+                f"batch_size {b} is not divisible by grad_accum {k}")
+        micro = list(zip(*(t.chunk(k) for t in inputs)))
+        gen = _dropout_generator(dev, generator)
+        draws = []
+
+        # ---- D / F phase, against the discriminators before the step ----
+        params_D, params_F = list(D.parameters()), list(F.parameters())
+        acc, loss_D_img, loss_F_feat = None, 0.0, 0.0
+        for gt, ref, mask, _, flag in micro:
+            with torch.no_grad():
+                real_feat = vgg(gt, upto=3).relu3_3
+                ref_feat = vgg(ref).relu4_3
+                draws.append(gen.get_state())
+                fwd = two_stage_forward(G, P, gt, mask, ref_feat, flag, impl,
+                                        generator, dt)
+                fake_feat = vgg(fwd.fake_B, upto=3).relu3_3
+            l_D, l_F = _d_losses(cfg, D, F, fwd.fake_B, gt, fake_feat,
+                                 real_feat)
+            acc = _accumulate(acc, torch.autograd.grad(
+                0.5 * l_D + 0.5 * l_F, params_D + params_F))
+            loss_D_img = loss_D_img + l_D.detach()
+            loss_F_feat = loss_F_feat + l_F.detach()
+        for g in acc:
+            g.div_(k)
+        _apply_grads(state.opt_D, params_D, acc[:len(params_D)])
+        _apply_grads(state.opt_F, params_F, acc[len(params_D):])
+
+        # ---- G / P phase, against the updated discriminators ----
+        params_G, params_P = list(G.parameters()), list(P.parameters())
+        acc, sums = None, [0.0, 0.0, 0.0]
+        for (gt, ref, mask, fmask, flag), draw in zip(micro, draws):
+            with torch.no_grad():
+                vgg_gt = vgg(gt)
+                ref_feat = vgg(ref).relu4_3
+            gen.set_state(draw)
+            with frozen_running_stats(G, P):
+                fwd = two_stage_forward(G, P, gt, mask, ref_feat, flag, impl,
+                                        generator, dt)
+            with torch.no_grad():
+                fake_feat = vgg(fwd.fake_B.detach(), upto=3).relu3_3
+            loss_G, *parts = _g_losses(cfg, D, F, fwd, gt, fake_feat, vgg_gt,
+                                       fmask)
+            acc = _accumulate(acc, torch.autograd.grad(
+                loss_G, params_G + params_P))
+            sums = [s + v.detach() for s, v in zip(sums, parts)]
+        for g in acc:
+            g.div_(k)
+        _apply_grads(state.opt_G, params_G, acc[:len(params_G)])
+        _apply_grads(state.opt_P, params_P, acc[len(params_G):])
+
+        state.step += 1
+        loss_G_GAN, loss_G_L1, cos = (v / k for v in sums)
+        metrics = {"G_GAN": loss_G_GAN, "G_L1": loss_G_L1,
+                   "D": loss_D_img / k, "F": loss_F_feat / k, "cosis": cos,
+                   "loss": loss_G_L1}
+        return state, metrics
 
     return train_step
 
@@ -467,6 +627,7 @@ def make_eval_step(cfg: Config, device: DeviceLike = None):
     dev = resolve_device(device)
     check_config(cfg)
     impl = check_impl(cfg.attention_impl)
+    dt = compute_dtype(cfg)
 
     @torch.inference_mode()
     def eval_step(state, batch) -> Dict[str, object]:
@@ -483,7 +644,7 @@ def make_eval_step(cfg: Config, device: DeviceLike = None):
                 _as_tensor(batch["mask"], dev)))
             _, flag = prepare_masks(cfg, mask)
             fwd = two_stage_forward(G, P, gt, mask, vgg(ref).relu4_3, flag,
-                                    impl)
+                                    impl, dtype=dt)
         finally:
             G.train(modes[0])
             P.train(modes[1])
@@ -509,12 +670,13 @@ def make_coarse_fn(cfg: Config, device: DeviceLike = None):
     `device` in eval mode."""
     dev = resolve_device(device)
     check_config(cfg)
+    dt = compute_dtype(cfg)
 
     @torch.inference_mode()
     def coarse(P, gt, mask):
         gt = normalize_image(_as_tensor(gt, dev)).permute(0, 3, 1, 2)
         mask = resolve_mask(cfg, normalize_mask(_as_tensor(mask, dev)))
-        fake_P = P(M.fill_hole_with_mean(gt, mask))
+        fake_P = P(M.fill_hole_with_mean(gt, mask).to(dt)).to(torch.float32)
         m = mask[:, None]
         composite = fake_P * m + gt * (1.0 - m)
         return fake_P.permute(0, 2, 3, 1), composite.permute(0, 2, 3, 1)

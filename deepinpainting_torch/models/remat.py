@@ -1,0 +1,64 @@
+"""Rematerialisation of U-Net levels (Config.remat / remat_depth), the
+counterpart of nn.remat in the JAX package's U-Nets.
+
+A checkpointed level keeps no activations for the backward: autograd runs
+the level's forward again when it needs them (torch.utils.checkpoint,
+non-reentrant, so the first forward keeps grad mode on and the attention
+Function builds its matrix as it does without remat).  The level's
+submodule call sits inside it, so a checkpointed level recomputes its whole
+subtree.  Two things that flax's functional state gives for free are done
+here by hand:
+
+  * dropout draws from an explicit torch.Generator, which checkpoint does
+    not replay: the generator's state at the level's entry is set again for
+    the recompute, and put back where the step left it afterwards;
+  * a recomputed train-mode BatchNorm would move its running statistics a
+    second time: the recompute runs under frozen_running_stats.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.convs import frozen_running_stats
+
+
+def mark_levels(outermost: nn.Module, remat: bool, depth: int) -> None:
+    """Number a U-Net's levels from the outside (the outermost block is 0,
+    each `submodule` one more) and set `remat` on the `depth` outermost
+    ones (0 = all), as the JAX package's setup numbers them."""
+    level, block = 0, outermost
+    while block is not None:
+        block.remat = remat and (depth == 0 or level < depth)
+        level, block = level + 1, block.submodule
+
+
+def checkpoint_level(level: nn.Module, fn: Callable, x: torch.Tensor,
+                     generator: Optional[torch.Generator]):
+    """fn(x), the forward of `level`, without keeping its activations.
+    `generator` is the dropout's (None: the device's default generator,
+    which checkpoint itself replays)."""
+    entry = None if generator is None else generator.get_state()
+    calls = 0
+
+    def run(x):
+        nonlocal calls
+        calls += 1
+        if calls == 1:
+            return fn(x)
+        # the recompute: the same dropout draw, no running-statistics move
+        left = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(entry)
+        try:
+            with frozen_running_stats(level):
+                return fn(x)
+        finally:
+            if generator is not None:
+                generator.set_state(left)
+
+    return checkpoint(run, x, use_reentrant=False)

@@ -9,6 +9,9 @@ Layer attribute names follow the JAX package's flax scope names, and the
 nested blocks are `model.submodule.submodule...`, as flax names them.
 Dropout(0.5) sits in the middle 8ngf blocks when use_dropout is set; it is
 active in train mode only and draws from the generator passed to forward.
+With remat the `remat_depth` outermost levels (0 = all; the innermost is
+level num_downs - 1) are checkpointed under grad (models/remat.py).  Every
+layer computes in its input's dtype (ops/convs.py).
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.convs import Dropout, bilinear_resize, leaky_relu, make_norm
+from ..ops.convs import (Conv2d, ConvTranspose2d, Dropout, bilinear_resize,
+                         leaky_relu, make_norm)
+from .remat import checkpoint_level, mark_levels
 
 
 class UnetSkipBlock(nn.Module):
@@ -33,19 +38,27 @@ class UnetSkipBlock(nn.Module):
         super().__init__()
         input_nc = outer_nc if input_nc is None else input_nc
         self.outermost, self.innermost = outermost, innermost
-        self.down_conv = nn.Conv2d(input_nc, inner_nc, 4, 2, 1)
+        self.down_conv = Conv2d(input_nc, inner_nc, 4, 2, 1)
         if not (outermost or innermost):
             self.down_norm = make_norm(norm, inner_nc)
         self.submodule = submodule
         up_in = inner_nc if innermost else 2 * inner_nc
-        self.up_conv = nn.ConvTranspose2d(up_in, outer_nc, 4, 2, 1)
+        self.up_conv = ConvTranspose2d(up_in, outer_nc, 4, 2, 1)
         if not outermost:
             self.up_norm = make_norm(norm, outer_nc)
         self.dropout = (Dropout(0.5) if use_dropout and not outermost
                         else None)
+        self.remat = False          # set by UnetGenerator (mark_levels)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint_level(
+                self, lambda t: self._forward(t, generator), x, generator)
+        return self._forward(x, generator)
+
+    def _forward(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
         y = x if self.outermost else leaky_relu(x, 0.2)
         y = self.down_conv(y)
         if not (self.outermost or self.innermost):
@@ -69,7 +82,8 @@ class UnetGenerator(nn.Module):
 
     def __init__(self, input_nc: int = 3, output_nc: int = 3,
                  num_downs: int = 8, ngf: int = 64,
-                 use_dropout: bool = False, norm: str = "instance"):
+                 use_dropout: bool = False, norm: str = "instance",
+                 remat: bool = False, remat_depth: int = 1):
         super().__init__()
         block = UnetSkipBlock(ngf * 8, ngf * 8, innermost=True, norm=norm)
         for _ in range(num_downs - 5):
@@ -81,6 +95,7 @@ class UnetGenerator(nn.Module):
         self.model = UnetSkipBlock(output_nc, ngf, input_nc=input_nc,
                                    submodule=block, outermost=True,
                                    norm=norm)
+        mark_levels(self.model, remat, remat_depth)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -17,7 +17,12 @@ IN is InstanceNorm, or BatchNorm with norm='batch'.  Layer attribute
 names follow the JAX package's flax scope names.  The
 attention level carries triple_weight and truncate_backward for the
 attention's backward (ops/attention.py); dropout is active in train mode
-only and draws from the generator passed to forward.
+only and draws from the generator passed to forward.  With remat the
+`remat_depth` outermost levels (0 = all) are checkpointed under grad
+(models/remat.py); this ladder has one level more than netP's, so the
+innermost is level num_downs and the attention level is 3.  Every layer
+computes in its input's dtype (ops/convs.py); the attention gets the
+reference feature in that dtype and computes in f32 inside.
 """
 
 from __future__ import annotations
@@ -29,7 +34,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import ipsr_attention_batched
-from ..ops.convs import Dropout, bilinear_resize, leaky_relu, make_norm
+from ..ops.convs import (Conv2d, ConvTranspose2d, Dropout, bilinear_resize,
+                         leaky_relu, make_norm)
+from .remat import checkpoint_level, mark_levels
 
 
 class UnetBlock3(nn.Module):
@@ -52,33 +59,41 @@ class UnetBlock3(nn.Module):
         self.triple_weight = triple_weight
         self.truncate_backward = truncate_backward
         if outermost:
-            self.down_conv3 = nn.Conv2d(input_nc, inner_nc, 3, 1, 1)
+            self.down_conv3 = Conv2d(input_nc, inner_nc, 3, 1, 1)
         else:
-            self.down_dilconv = nn.Conv2d(input_nc, input_nc, 4, 2, 3,
+            self.down_dilconv = Conv2d(input_nc, input_nc, 4, 2, 3,
                                           dilation=2)
             if not innermost:
                 self.down_norm = make_norm(norm, input_nc)
-                self.down_conv3 = nn.Conv2d(input_nc, inner_nc, 3, 1, 1)
+                self.down_conv3 = Conv2d(input_nc, inner_nc, 3, 1, 1)
                 self.down_norm3 = make_norm(norm, inner_nc)
         self.submodule = submodule
         if outermost:
-            self.up_conv3 = nn.ConvTranspose2d(2 * inner_nc, outer_nc, 3, 1, 1)
+            self.up_conv3 = ConvTranspose2d(2 * inner_nc, outer_nc, 3, 1, 1)
         elif innermost:
-            self.up_conv = nn.ConvTranspose2d(input_nc, outer_nc, 4, 2, 1)
+            self.up_conv = ConvTranspose2d(input_nc, outer_nc, 4, 2, 1)
             self.up_norm = make_norm(norm, outer_nc)
         else:
-            self.up_conv3 = nn.ConvTranspose2d(2 * inner_nc, outer_nc, 3, 1, 1)
+            self.up_conv3 = ConvTranspose2d(2 * inner_nc, outer_nc, 3, 1, 1)
             self.up_norm3 = make_norm(norm, outer_nc)
-            self.up_conv = nn.ConvTranspose2d(outer_nc, outer_nc, 4, 2, 1)
+            self.up_conv = ConvTranspose2d(outer_nc, outer_nc, 4, 2, 1)
             self.up_norm = make_norm(norm, outer_nc)
         self.dropout = (Dropout(0.5) if use_dropout and not outermost
                         else None)
+        self.remat = False          # set by UnetGeneratorIPSR (mark_levels)
 
     def forward(self, x: torch.Tensor, aux: Dict[str, Any]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """aux carries {'ref_feat': [B,C,h,w], 'flag': [B,h*w],
         'impl': attention_impl, 'generator': the dropout's}; returns
         (output, taps) with the InnerCos features."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint_level(self, lambda t: self._forward(t, aux), x,
+                                    aux.get("generator"))
+        return self._forward(x, aux)
+
+    def _forward(self, x: torch.Tensor, aux: Dict[str, Any]
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         taps: Dict[str, torch.Tensor] = {}
         # ---- down ----
         if self.outermost:
@@ -126,7 +141,8 @@ class UnetGeneratorIPSR(nn.Module):
                  num_downs: int = 8, ngf: int = 64,
                  use_dropout: bool = False, known_replacement: bool = True,
                  triple_weight: float = 1.0, truncate_backward: bool = True,
-                 norm: str = "instance"):
+                 norm: str = "instance", remat: bool = False,
+                 remat_depth: int = 1):
         super().__init__()
         block = UnetBlock3(ngf * 8, ngf * 8, innermost=True, norm=norm)
         for _ in range(num_downs - 5):
@@ -143,6 +159,7 @@ class UnetGeneratorIPSR(nn.Module):
         block = UnetBlock3(ngf, ngf * 2, submodule=block, norm=norm)
         self.model = UnetBlock3(output_nc, ngf, input_nc=input_nc,
                                 submodule=block, outermost=True, norm=norm)
+        mark_levels(self.model, remat, remat_depth)
 
     def forward(self, x: torch.Tensor, ref_feat: torch.Tensor,
                 flag: torch.Tensor, attention_impl: Optional[str] = None,

@@ -10,7 +10,9 @@ activations except the last:
     relu3_3 = pool3 output, 256ch, H/8
     relu4_3 = conv4_3+ReLU, 512ch, H/8   (attention ref)
 
-Inputs are [-1,1] images, not ImageNet-normalised.  The extractor is
+Inputs are [-1,1] images, not ImageNet-normalised; the extractor computes
+in their dtype (ops/convs.py: bf16 only where the inference function feeds
+it bf16, as the JAX package's does).  The extractor is
 frozen.  `forward(x, upto=3)` stops after relu3_3 (relu4_3 comes back
 None): the train step needs no more of the fake image.
 """
@@ -23,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.convs import he_normal_
+from ..ops.convs import Conv2d, he_normal_
 
 
 class VggFeatures(NamedTuple):
@@ -52,7 +54,7 @@ class Vgg16(nn.Module):
         for convs in SLICES:
             for name, c in convs:
                 cout = max(1, int(c * width_scale))
-                setattr(self, name, nn.Conv2d(cin, cout, 3, 1, 1))
+                setattr(self, name, Conv2d(cin, cout, 3, 1, 1))
                 cin = cout
         self.requires_grad_(False)
 

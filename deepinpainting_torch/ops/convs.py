@@ -14,10 +14,17 @@ Weight init draws the same distributions as the JAX package's make_init
 InstanceNorm affine at (1, 0), BatchNorm scale from N(1, gain).  `Dropout`
 draws its keep mask from an explicit torch.Generator, so a training run
 repeats from a seed.
+
+Compute dtype (Config.dtype): parameters stay f32 and every layer computes
+in its input's dtype, as the JAX package's layers do.  Under bf16 a conv
+casts its weight to bf16 per call (its gradient reaches the f32 master
+weight through the cast), its output is rounded to bf16 and the bias is
+added in bf16; the norms keep their statistics in f32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -53,16 +60,94 @@ class InstanceNorm(nn.Module):
         return instance_norm(x, self.weight, self.bias, self.eps)
 
 
+def _channels(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A per-channel vector [C] in `dtype`, shaped to broadcast on NCHW."""
+    return v.to(dtype)[:, None, None]
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that computes in its input's dtype (see the module
+    docstring); on an f32 input it is nn.Conv2d unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        y = self._conv_forward(x, self.weight.to(x.dtype), None)
+        return y if self.bias is None else y + _channels(self.bias, x.dtype)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (output_padding 0) that computes in its input's
+    dtype, as Conv2d does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        y = F.conv_transpose2d(x, self.weight.to(x.dtype), None, self.stride,
+                               self.padding, self.output_padding,
+                               self.groups, self.dilation)
+        return y if self.bias is None else y + _channels(self.bias, x.dtype)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """nn.BatchNorm2d at its defaults (eps 1e-5, momentum 0.1), which is
+    what the JAX package's TorchBatchNorm reproduces: train mode normalises
+    with the biased batch variance over (N, H, W) and tracks the unbiased
+    one, eval mode uses the running statistics.
+
+    On an input in another dtype than f32 the statistics and the
+    normalisation run in f32, the result is cast back, and the scale and
+    offset apply in the input's dtype (TorchBatchNorm's arithmetic; a bare
+    nn.BatchNorm2d applies them in f32).  Inside frozen_running_stats a
+    train-mode forward normalises by its batch as usual but leaves the
+    running statistics where they were."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+        self.frozen = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean, var = self.running_mean, self.running_var
+        if self.training and self.frozen:
+            # copies take the update; passing none would change what the
+            # forward saves for the backward, which checkpoint compares
+            mean, var = mean.clone(), var.clone()
+        elif self.training:
+            self.num_batches_tracked.add_(1)
+        if x.dtype == self.weight.dtype:
+            return F.batch_norm(x, mean, var, self.weight, self.bias,
+                                self.training, self.momentum, self.eps)
+        y = F.batch_norm(x.to(self.weight.dtype), mean, var, None, None,
+                         self.training, self.momentum, self.eps).to(x.dtype)
+        return (y * _channels(self.weight, x.dtype)
+                + _channels(self.bias, x.dtype))
+
+
+@contextlib.contextmanager
+def frozen_running_stats(*modules: nn.Module):
+    """Within the block, the BatchNorm layers of `modules` do not move
+    their running statistics: for forwards that repeat one whose update was
+    already taken (a rematerialised block's recompute, the G phase of a
+    gradient-accumulated step).  Nests; each layer gets its flag back."""
+    layers = [m for mod in modules for m in mod.modules()
+              if isinstance(m, BatchNorm)]
+    before = [m.frozen for m in layers]
+    for m in layers:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m, flag in zip(layers, before):
+            m.frozen = flag
+
+
 def make_norm(norm: str, channels: int) -> nn.Module:
-    """Norm-layer factory (Config.norm).  'instance' is InstanceNorm above.
-    'batch' is nn.BatchNorm2d at its defaults (eps 1e-5, momentum 0.1),
-    which is what the JAX package's TorchBatchNorm reproduces: train mode
-    normalises with the biased batch variance over (N, H, W) and tracks the
-    unbiased one, eval mode uses the running statistics."""
+    """Norm-layer factory (Config.norm): 'instance' is InstanceNorm above,
+    'batch' is BatchNorm."""
     if norm == "instance":
         return InstanceNorm(channels)
     if norm == "batch":
-        return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+        return BatchNorm(channels)
     raise NotImplementedError(
         f"normalization layer [{norm}] is not found (supported: "
         f"{', '.join(NORMS)})")

@@ -113,7 +113,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
 
 
 def test_unported_options_are_refused():
-    for kw in (dict(dtype="bfloat16"),
+    for kw in (dict(dtype="float16"),
                dict(quant="int8"), dict(pack_out=True),
                dict(pack_small_cin=True), dict(norm="group"),
                dict(init_type="uniform"), dict(which_model_netG="unet_256")):
@@ -125,10 +125,10 @@ def test_unported_options_are_refused():
                dict(attention_impl="xla")):
         with pytest.raises(ValueError):
             TI.build_models(TINY.replace(**kw))
-    # training options left for later, each refused by its name
+    # options left for later, each refused by its name
     gen = torch.Generator().manual_seed(0)
-    for kw in (dict(grad_accum=2), dict(remat=True),
-               dict(dtype="bfloat16"), dict(quant="int8")):
+    for kw in (dict(pack_small_cin=True), dict(pack_out=True),
+               dict(dtype="float16"), dict(quant="int8")):
         name = next(iter(kw))
         with pytest.raises(NotImplementedError, match=name):
             TI.make_train_step(TINY.replace(**kw), "cpu")
@@ -136,9 +136,15 @@ def test_unported_options_are_refused():
             TI.create_state(TINY.replace(**kw), gen, "cpu")
     with pytest.raises(ValueError, match="gan_type"):
         TI.make_train_step(TINY.replace(gan_type="hinge"), "cpu")
-    # norm='batch' is ported: it builds; debug_nan is the trainer's guard,
-    # and the step builds with it
+    # norm='batch', the bf16 compute dtype, remat and grad_accum are
+    # ported: they build; debug_nan is the trainer's guard, and the step
+    # builds with it
     TI.build_models(TINY.replace(norm="batch"))
+    ported = TINY.replace(dtype="bfloat16", remat=True, remat_depth=0,
+                          grad_accum=2, batch_size=2)
+    TI.build_models(ported)
+    TI.make_train_step(ported, "cpu")
+    TI.create_state(ported, gen, "cpu")
     TI.make_train_step(TINY.replace(debug_nan=True), "cpu")
     TI.create_state(TINY.replace(debug_nan=True), gen, "cpu")
 

@@ -412,8 +412,8 @@ def test_training_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(grad_accum=2), dict(remat=True),
-    dict(dtype="bfloat16"), dict(quant="int8"),
+    dict(pack_small_cin=True), dict(dtype="float16"),
+    dict(dtype="float64"), dict(quant="int8"),
     dict(pack_out=True)])
 def test_options_left_for_later_are_refused_by_name(kw):
     _, tcfg = configs(**dict(FIELDS, **kw))

@@ -218,7 +218,10 @@ def run_both(fields, params, flats, seeds=(1, 2)):
     first step, g = mu / (1 - beta1): exact for beta1 = 0.5.  `risky` counts
     the first step's kbar entries on which `trunc` could go either way, and
     `kbar_max` is its largest entry (well above 1 after a near-cancelling
-    at + vmax, where the recurrence amplifies every rounding difference).
+    at + vmax, where the recurrence amplifies every rounding difference),
+    both over every kbar the first step built: one a differentiated
+    forward and one more a recompute of a checkpointed level that encloses
+    the attention level, a microbatch with grad_accum (its G phase).
     """
     jcfg, tcfg = configs(**fields)
     b1, b2 = (tiny_batch(seed, tcfg.batch_size) for seed in seeds)
@@ -244,7 +247,12 @@ def run_both(fields, params, flats, seeds=(1, 2)):
         same, tm1 = tstep(tstate, b1)
     finally:
         TA.attention_core_batched = core
-    assert same is tstate and tstate.step == 1 and len(seen) == 1
+    # remat: each checkpointed level of netG's levels 0-3 (those that
+    # enclose the attention level) recomputes it once more
+    enclosing = (0 if not tcfg.remat else 4 if tcfg.remat_depth == 0
+                 else min(tcfg.remat_depth, 4))
+    builds = max(1, tcfg.grad_accum) * (1 + enclosing)
+    assert same is tstate and tstate.step == 1 and len(seen) == builds
     after = {n: state_tensors(tstate, n) for n in TRAINED + ("vgg",)}
     tgrads = {n: state_grads(tstate, n) for n in TRAINED}
     _, tm2 = tstep(tstate, b2)
@@ -252,7 +260,8 @@ def run_both(fields, params, flats, seeds=(1, 2)):
 
     out = dict(jm1=jm1, jm2=jm2, tm1=tm1, tm2=tm2, before=before,
                after=after, final=final, tgrads=tgrads, tstate=tstate,
-               j2=j2, tcfg=tcfg, risky=seen[0][0], kbar_max=seen[0][1],
+               j2=j2, tcfg=tcfg, risky=sum(r for r, _ in seen),
+               kbar_max=max(m for _, m in seen),
                jgrads={}, jafter={}, jfinal={})
     for n in TRAINED:
         module = getattr(tstate, n)
