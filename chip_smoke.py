@@ -43,7 +43,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      launches; (d) (a)'s first step with the kernels against the plain
      versions at a small hole, and the recompute's kbar against the
      forward's bit for bit; (e) bf16 serving at 256 and 512 px; (f) both
-     kernels timed at N=4096, B=1 and B=8, center hole.
+     kernels timed at N=4096, B=1 and B=8, center hole;
+  9. the serving program at 256 px, full width: (a) phase 5's trained
+     state saved with CheckpointManager (under build/, removed at exit) and
+     restored by InferenceSession(cfg, which_epoch), its answers against
+     phase 3's session bit for bit; (b) InpaintApp in process: three
+     uploads, run_bytes against run, HTTP p50 (and its host work alone)
+     and coalesced b8, one POST over ThreadingWSGIServer on 127.0.0.1;
+     (c) the serving artifact:
+     export and load times, bytes, the loaded call against the live
+     serving function at B = 1, 3, 8, 9 bit for bit, the scan's launches
+     inside it, a graph with the scan op and no kbar op, and
+     InferenceSession.from_export's p50 and b8.
 Three lines end the output, each on its own: a JSON object with a `kernels`
 list, the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -51,12 +62,17 @@ list, the card's name and power limit as nvidia-smi gives them, and last
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import csv
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -77,6 +93,7 @@ TIMED_STEPS = 5        # more steps after those, for a steadier median
 TRAIN_BATCH = 8
 SCAN_C = 512           # attention channels at the default width (8*ngf)
 P8_SIZE = 512          # phase 8: N = (512/8)^2 = 4096 attention positions
+BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
 
 def log(msg: str) -> None:
@@ -256,8 +273,6 @@ def training_program(dev, card: str, bare_img_s: float, center, strokes,
     visual dump, async checkpoints) -> restore -> resume -> evaluate, and
     evaluation with the kernels against the plain versions.  Returns the
     kernels' launches on the trainer and evaluate paths."""
-    import shutil
-    import tempfile
     import torch
     from deepinpainting_torch.config import Config
     from deepinpainting_torch.data import (BatchIterator, InpaintDataset,
@@ -271,9 +286,8 @@ def training_program(dev, card: str, bare_img_s: float, center, strokes,
     from deepinpainting_torch.ops import attention_cuda as TAC
     from deepinpainting_torch.utils.metrics import psnr, ssim
 
-    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(build, exist_ok=True)
-    root = tempfile.mkdtemp(prefix="chip_smoke_phase7_", dir=build)
+    os.makedirs(BUILD, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_phase7_", dir=BUILD)
     try:
         s = 256
         t0 = time.perf_counter()
@@ -768,6 +782,299 @@ def precision_and_memory(dev, card: str, base, models256, phase6: dict,
             "serving": serving}
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's default algorithm for a transposed convolution (its
+    data-gradient kernel) sums with atomics, so two calls on the same
+    inputs may differ in the last bit of fake_B and by 1 in a uint8 pixel.
+    The comparisons that phase 9 holds bit for bit run with cuDNN's
+    deterministic algorithms only; its timings run with the defaults."""
+    import torch
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def serving_requests(s: int, overlap: int, n: int = 4, seed: int = 9):
+    """n uint8 requests at s px: center holes and, in turn, two bars."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        mask = np.zeros((1, s, s), np.uint8)
+        if i % 2:
+            mask[:, s // 3:s // 3 + 12, s // 8:7 * s // 8] = 1
+            mask[:, s // 8:7 * s // 8, 2 * s // 3:2 * s // 3 + 12] = 1
+        else:
+            mask[:, s // 4 + overlap:3 * s // 4 - overlap,
+                 s // 4 + overlap:3 * s // 4 - overlap] = 1
+        img, ref = rng.integers(0, 256, (2, 1, s, s, 3), dtype=np.uint8)
+        out.append((img, mask, ref))
+    return out
+
+
+def encode(arr: np.ndarray, fmt: str) -> bytes:
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, fmt)
+    return buf.getvalue()
+
+
+def wsgi_call(app, method: str, path: str, body: bytes = b"",
+              content_type: str = ""):
+    """One request through the WSGI interface: (status, headers, body)."""
+    got = {}
+
+    def start_response(status, headers):
+        got["status"], got["headers"] = status, dict(headers)
+
+    out = b"".join(app({"REQUEST_METHOD": method, "PATH_INFO": path,
+                        "CONTENT_LENGTH": str(len(body)),
+                        "CONTENT_TYPE": content_type,
+                        "wsgi.input": io.BytesIO(body)}, start_response))
+    return got["status"], got["headers"], out
+
+
+def concurrent_img_s(run, jobs, clients: int = 8) -> float:
+    """Images a second when `clients` threads share `jobs` (thunks)."""
+    errors = []
+
+    def client(k):
+        try:
+            for job in jobs[k::clients]:
+                job()
+        except Exception as e:          # raised below, in the caller
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    ws = [threading.Thread(target=client, args=(k,)) for k in range(clients)]
+    for t in ws:
+        t.start()
+    for t in ws:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    check(not errors and not any(t.is_alive() for t in ws),
+          f"concurrent {run}: {errors[:1]}")
+    return len(jobs) / wall
+
+
+def serving_program(dev, card: str, p9_cfg, epoch: int, requests, live,
+                    n_http: int = 20, n_b8: int = 32) -> dict:
+    """Phase 9: the serving program at full width, 256 px.  (a) the
+    session restored from phase 5's checkpoint against phase 3's session
+    on the same requests; (b) InpaintApp in process (uploads, run_bytes,
+    HTTP p50 and b8, one POST over a real socket); (c) the artifact:
+    export, load, the loaded call against the live one at batches 1, 3, 8
+    and 9, and InferenceSession.from_export.  Returns each path's
+    launches."""
+    import torch
+    from PIL import Image
+    from deepinpainting_torch.engine import export_model as EM
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.serve.app import (InferenceSession,
+                                                encode_multipart,
+                                                make_app,
+                                                parse_multipart,
+                                                post_over_socket)
+
+    s = p9_cfg.fine_size
+    counts = lambda: {"scan_stream": TAC.launches,
+                      "kbar_build": TAC.kbar_launches}
+    paths = {}
+
+    # ---- (a) the session restored from the checkpoint ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = InferenceSession(p9_cfg, epoch, device=dev)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    TAC.launches = TAC.kbar_launches = 0   # counts: the restored session
+    with deterministic_cudnn():
+        answers = [sess.run(*r) for r in requests]
+    paths["serving_restored"] = counts()
+    same = all(np.array_equal(a, b) for a, b in zip(answers, live))
+    log(f"phase 9 (a) InferenceSession(cfg, which_epoch={epoch}): restored "
+        f"G, P and VGG in {restore_ms:.1f} ms; {len(requests)} answers equal"
+        f" phase 3's session over the trained networks bit for bit: {same}; "
+        f"launches {paths['serving_restored']}  [{card}]")
+    check(same, "the restored session must answer as the live one")
+    check(paths["serving_restored"] == {"scan_stream": len(requests),
+                                        "kbar_build": 0},
+          "restored session: one scan launch a request, no kbar")
+
+    # ---- (b) InpaintApp in process, then over a socket ----
+    static = os.path.join(p9_cfg.checkpoints_dir, "static")
+    app = make_app(p9_cfg, epoch, static, device=dev)
+    rng = np.random.default_rng(19)
+    uploads = []
+    for i, (fmt, h, w) in enumerate((("JPEG", s, s), ("PNG", 300, 200),
+                                     ("JPEG", 180, 240))):
+        img, ref = rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+        hole = np.zeros((h, w, 3), np.uint8)
+        hole[h // 4:h // 2 + 8 * i, w // 3:2 * w // 3] = 255
+        uploads.append({"srcImage": encode(img, fmt),
+                        "binaryMask": encode(hole, "PNG"),
+                        "refImage": encode(ref, fmt)})
+    dec = lambda b: np.array(Image.open(io.BytesIO(b)).convert("RGB").resize(
+        (s, s), Image.BILINEAR), np.uint8)
+    for fields in uploads:
+        status, headers, _ = wsgi_call(app, "POST", "/getImage",
+                                       *encode_multipart(fields))
+        check(status == "302 Found" and headers["Location"] == "/result",
+              f"POST /getImage: {status} {headers}")
+        status, _, page = wsgi_call(app, "GET", "/result")
+        check(status == "200 OK" and b"/static/img/test.jpg" in page,
+              f"GET /result: {status}")
+        status, headers, jpg = wsgi_call(app, "GET", "/static/img/test.jpg")
+        check(status == "200 OK" and headers["Content-Type"] == "image/jpeg"
+              and Image.open(io.BytesIO(jpg)).size == (s, s),
+              "the result must decode to the served size")
+        hole = (dec(fields["binaryMask"])[..., 0] > 0).astype(np.uint8)
+        with deterministic_cudnn():
+            want = app.session.run(dec(fields["srcImage"])[None],
+                                   hole[None], dec(fields["refImage"])[None])[0]
+            got = app.session.run_bytes(fields["srcImage"],
+                                        fields["binaryMask"],
+                                        fields["refImage"])
+        check(np.array_equal(got, want),
+              "run_bytes must equal run on the decoded arrays")
+    body = encode_multipart(uploads[0])
+    TAC.launches = TAC.kbar_launches = 0   # counts: the HTTP requests
+    lat = []
+    for _ in range(n_http):
+        t0 = time.perf_counter()
+        status, _, _ = wsgi_call(app, "POST", "/getImage", *body)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(status == "302 Found", f"POST /getImage: {status}")
+    paths["http"] = counts()
+    http_p50 = statistics.median(lat)
+    # the same request's host work alone, no device call: multipart parse,
+    # decode and resize of the three uploads, the mask, one JPEG encode
+    host = []
+    for _ in range(n_http):
+        t0 = time.perf_counter()
+        fields = parse_multipart(body[1], body[0])
+        _ = (dec(fields["binaryMask"])[..., 0] > 0, dec(fields["refImage"]))
+        Image.fromarray(dec(fields["srcImage"])).save(io.BytesIO(), "JPEG")
+        host.append((time.perf_counter() - t0) * 1e3)
+    host_p50 = statistics.median(host)
+    check(paths["http"] == {"scan_stream": n_http, "kbar_build": 0},
+          "HTTP: one scan launch a request, no kbar")
+    app8 = make_app(p9_cfg, None, static, state=app.session.state,
+                    max_batch=8, batch_wait_ms=50.0, device=dev)
+    posts = [encode_multipart(uploads[i % 3]) for i in range(n_b8)]
+    calls0 = app8.session.calls
+    TAC.launches = TAC.kbar_launches = 0   # counts: HTTP with coalescing
+    http_b8 = concurrent_img_s("HTTP POSTs", [
+        lambda b=b: check(wsgi_call(app8, "POST", "/getImage", *b)[0]
+                          == "302 Found", "coalesced POST") for b in posts])
+    paths["http_b8"] = counts()
+    check(paths["http_b8"]["scan_stream"] == app8.session.calls - calls0
+          and paths["http_b8"]["kbar_build"] == 0,
+          "coalesced HTTP: one scan launch a batched call")
+    log(f"phase 9 (b) InpaintApp: 3 uploads (JPEG {s}x{s}, PNG 200x300, "
+        f"JPEG 240x180) -> 302, /result 200, test.jpg {s}x{s}; run_bytes "
+        f"equals run on the decoded arrays bit for bit; HTTP POST p50 "
+        f"{http_p50:.2f} ms over {n_http} (decode, infer, JPEG encode; "
+        f"the host work alone p50 {host_p50:.2f} ms; "
+        f"{paths['http']['scan_stream'] / n_http:g} scan launches a "
+        f"request), b8 {http_b8:.2f} img/s ({n_b8} POSTs over 8 clients, "
+        f"{app8.session.calls - calls0} batched calls)  [{card}]")
+    app8.session.close()
+    status, location, ms, jpg = post_over_socket(app, uploads[0])
+    log(f"phase 9 (b) ThreadingWSGIServer on 127.0.0.1: POST /getImage -> "
+        f"{status} {location} in {ms:.1f} ms, result {len(jpg)} bytes")
+    check(status == 302 and location == "/result"
+          and Image.open(io.BytesIO(jpg)).size == (s, s),
+          "a POST over a real socket")
+
+    # ---- (c) the serving artifact ----
+    art = os.path.join(p9_cfg.checkpoints_dir, "artifact")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    EM.export_serving(p9_cfg, sess.state, art, device=dev)
+    export_s = time.perf_counter() - t0
+    files = {f: os.path.getsize(os.path.join(art, f))
+             for f in sorted(os.listdir(art))}
+    t0 = time.perf_counter()
+    loaded = EM.load_serving(art, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ops = EM.graph_ops(next(iter(loaded.exported.values())))
+    log(f"phase 9 (c) export_serving: {export_s:.2f} s, batch "
+        f"{loaded.batch}, {sum(files.values())} bytes ({files}); "
+        f"load_serving: {load_s:.2f} s; the graph calls "
+        f"{sorted(op for op in ops if 'deepinpainting' in op)}  [{card}]")
+    check(f"{EM.SCAN_OP}.default" in ops and not any(
+        EM.KBAR_OP in op for op in ops),
+        "the graph must call the scan op and not the kbar op")
+    live_fn = TI.make_serving_fn(sess.cfg, dev)
+    if loaded.batch != "symbolic":   # the live call on the same pieces
+        live_fn = EM._make_fixed_dispatch({n: live_fn for n in loaded.batch})
+    sizes = (1, 3, 8, 9)
+    batches = {b: [np.concatenate(x) for x in zip(*(
+        requests[i % len(requests)] for i in range(b)))] for b in sizes}
+    want = {}
+    for b, batch in batches.items():
+        with deterministic_cudnn():
+            want[b] = live_fn(*sess.state, *batch)
+        # with cuDNN's default algorithms, for the record
+        d = (loaded.call(loaded.G, loaded.P, loaded.vgg, *batch).int()
+             - live_fn(*sess.state, *batch).int()).abs()
+        log(f"phase 9 (c) loaded call at B={b} against live make_serving_fn"
+            f", default cuDNN: max |d| {d.max().item()}, "
+            f"{int((d > 0).sum().item())} of {d.numel()} values differ")
+    # one graph call a batch if symbolic, else one a pad-and-chunk piece
+    chunks = lambda n: 1 if loaded.batch == "symbolic" else (
+        n + max(loaded.batch) - 1) // max(loaded.batch)
+    torch.cuda.synchronize()
+    TAC.launches = TAC.kbar_launches = 0   # counts: the loaded calls only
+    with deterministic_cudnn():
+        got = {b: loaded.call(loaded.G, loaded.P, loaded.vgg, *batch)
+               for b, batch in batches.items()}
+        torch.cuda.synchronize()
+    paths["exported"] = counts()
+    unequal = [b for b in sizes if not torch.equal(got[b], want[b])]
+    log(f"phase 9 (c) loaded call at B = {sizes} against live "
+        f"make_serving_fn, deterministic cuDNN: bit for bit at every B: "
+        f"{not unequal}; launches {paths['exported']}")
+    check(not unequal, f"loaded call vs live at B={unequal}")
+    check(paths["exported"] == {"scan_stream": sum(map(chunks, sizes)),
+                                "kbar_build": 0},
+          "the loaded call: one scan launch a graph call, no kbar")
+    del loaded
+    single = InferenceSession.from_export(art, device=dev)
+    batched = InferenceSession.from_export(art, max_batch=8,
+                                           batch_wait_ms=50.0, device=dev)
+    single.warmup()
+    TAC.launches = TAC.kbar_launches = 0   # counts: from_export serving
+    lat = []
+    for i in range(n_http + 1):
+        t0 = time.perf_counter()
+        single.run(*requests[i % len(requests)])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    calls0 = batched.calls
+    b8 = concurrent_img_s("from_export requests", [
+        lambda r=requests[i % len(requests)]: batched.run(*r)
+        for i in range(n_b8)])
+    torch.cuda.synchronize()
+    paths["from_export"] = counts()
+    forwards = single.calls - 1 + batched.calls - calls0
+    check(paths["from_export"] == {"scan_stream": forwards, "kbar_build": 0},
+          "from_export: one scan launch a graph call, no kbar")
+    p50 = statistics.median(lat[1:])
+    log(f"phase 9 (c) InferenceSession.from_export: b1 p50 {p50:.2f} ms "
+        f"({n_http} requests), b8 {b8:.2f} img/s ({n_b8} requests over 8 "
+        f"clients, {batched.calls - calls0} batched calls), launches "
+        f"{paths['from_export']}  [{card}]")
+    for x in (single, batched, sess, app.session):
+        x.close()
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -779,6 +1086,7 @@ def main() -> int:
     from deepinpainting_torch import _build
     from deepinpainting_torch.config import Config
     from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.engine.checkpoint import CheckpointManager
     from deepinpainting_torch.ops import attention as TA
     from deepinpainting_torch.ops import attention_cuda as TAC
     from deepinpainting_torch.serve.app import InferenceSession
@@ -1184,6 +1492,20 @@ def main() -> int:
     check(TAC.launches - scan0 == single.calls - calls0 == 1
           and TAC.kbar_launches == TRAIN_STEPS,
           "serving the trained generators: one scan launch, no kbar")
+    # phase 9 restores this state from a checkpoint and holds its answers
+    # against these, so both are taken before the timing steps move it
+    p9_root = tempfile.mkdtemp(prefix="chip_smoke_phase9_", dir=BUILD)
+    atexit.register(shutil.rmtree, p9_root, True)
+    p9_cfg = cfg.replace(checkpoints_dir=p9_root, name="phase9")
+    p9_mgr = CheckpointManager(tcfg.replace(checkpoints_dir=p9_root,
+                                            name="phase9"))
+    p9_mgr.save(TRAIN_STEPS, state)
+    p9_requests = serving_requests(s, cfg.overlap)
+    with deterministic_cudnn():
+        p9_live = [single.run(*r) for r in p9_requests]
+    log(f"phase 5 state saved for phase 9: {p9_mgr.last_save['bytes']} "
+        f"bytes in {p9_mgr.last_save['total_ms']:.1f} ms; "
+        f"{len(p9_requests)} requests answered by phase 3's session")
     single.state = models
     # more steps for the timing alone, then where a step's device time goes
     # (two further steps under the profiler); all outside the counts
@@ -1320,8 +1642,15 @@ def main() -> int:
         dev, card, Config(fine_size=P8_SIZE, batch_size=TRAIN_BATCH), models,
         phase6)
 
+    # ---- phase 9: the serving program at full width, 256 px ---------------
+    t0 = time.perf_counter()
+    p9 = serving_program(dev, card, p9_cfg, TRAIN_STEPS, p9_requests,
+                         p9_live)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+
     # `launches` sums the main paths (serving, the train step, the trainer,
-    # evaluate, and phase 8's bf16 / remat / grad_accum paths); the
+    # evaluate, phase 8's bf16 / remat / grad_accum paths and phase 9's
+    # serving program); the
     # times are those at B=8, N=1024, the shapes a 256 px train step gives
     # both: `ms` a launch of 20 back to back, `single_launch_ms` the median
     # of single launches, each between its own pair of events.  `n4096`
@@ -1332,7 +1661,8 @@ def main() -> int:
                             "trainer": program_launches["trainer"][name],
                             "evaluate": program_launches["evaluate"][name],
                             **{path: n[name]
-                               for path, n in p8["paths"].items()}}
+                               for paths in (p8["paths"], p9)
+                               for path, n in paths.items()}}
     n4096 = lambda name: {
         f"B{b}": {k: t[name][k] for k in ("ms", "single_ms", "plain_ms",
                                           "bound_ms", "bound_by")}

@@ -5,8 +5,12 @@ deepinpainting_tpu/_cli.py::train, evaluate):
         --refroot R [--validroot V] [--device cpu] [--<any Config field> V]
     python -m deepinpainting_torch._cli evaluate --dataroot D --maskroot M \
         --name N --which_epoch E [--save_dir S] [--device cpu]
+    python -m deepinpainting_torch._cli serve [--which_epoch E | \
+        --random_weights | --from_export DIR] [--max_batch 8] [--device cpu]
+    python -m deepinpainting_torch._cli export --out DIR \
+        [--which_epoch E | --random_weights] [--batches 1,8] [--device cpu]
 
-Both run on the card unless given --device cpu.  This module imports no
+Each runs on the card unless given --device cpu.  This module imports no
 torch at module level: the data loader's spawned workers import it as
 their main module.
 """
@@ -115,7 +119,129 @@ def evaluate(argv=None):
                     save_dir=args.save_dir or None, device=args.device)
 
 
-COMMANDS = {"train": train, "evaluate": evaluate}
+def _serving_config(args):
+    """The run's config.json under --checkpoints_dir/--name if there is
+    one, else Config() (counterpart of the JAX CLI's serve/export); an
+    option the port does not run is refused by name here."""
+    from .engine.inpaint import check_config
+
+    cfg_path = os.path.join(args.checkpoints_dir, args.name, "config.json")
+    cfg = Config.load(cfg_path) if os.path.exists(cfg_path) else Config()
+    cfg = cfg.replace(checkpoints_dir=args.checkpoints_dir, name=args.name,
+                      is_train=False)
+    if args.quant:
+        cfg = cfg.replace(quant=args.quant)
+    check_config(cfg)
+    return cfg
+
+
+def export(argv=None):
+    """Export a checkpoint's serving function as an artifact
+    (engine/export_model.py): a torch.export graph, config.json and the
+    npz weights, loadable with load_serving or `serve --from_export`."""
+    ap = argparse.ArgumentParser(description=export.__doc__)
+    ap.add_argument("--checkpoints_dir", default="checkpoints")
+    ap.add_argument("--name", default="IPSR_inpainting")
+    ap.add_argument("--which_epoch", type=int, default=None,
+                    help="epoch checkpoint to export (default 46; omit and "
+                         "give --random_weights for a smoke artifact)")
+    ap.add_argument("--random_weights", action="store_true")
+    ap.add_argument("--out", required=True, help="artifact directory")
+    ap.add_argument("--quant", default="", choices=["", "none", "int8"],
+                    help="override the checkpoint config's quant mode "
+                         "(int8 is not ported yet)")
+    ap.add_argument("--batches", default="",
+                    help="comma-separated batch sizes to export as a fixed "
+                         "set, e.g. '1,8' (default: a symbolic batch "
+                         "dimension, falling back to 1,8)")
+    ap.add_argument("--device", default="cuda",
+                    help="the device type the artifact serves on: 'cuda' "
+                         "(default) or 'cpu'")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from .engine.checkpoint import CheckpointManager
+    from .engine.export_model import export_serving
+    from .engine.inpaint import init_params
+
+    cfg = _serving_config(args)
+    if args.random_weights:
+        models = init_params(cfg, torch.Generator().manual_seed(cfg.seed),
+                             args.device)
+    else:
+        # 46: the reference's serving default, as `serve` takes it
+        epoch = 46 if args.which_epoch is None else args.which_epoch
+        models = CheckpointManager(cfg).restore_models(epoch, args.device)
+    batches = [int(b) for b in args.batches.split(",") if b] or None
+    out = export_serving(cfg, models, args.out, batch_sizes=batches,
+                         device=args.device)
+    print(f"exported serving artifact -> {out}")
+    return out
+
+
+def serve(argv=None):
+    """Serve the browser demo (serve/app.py) on a threading WSGI server."""
+    ap = argparse.ArgumentParser(description=serve.__doc__)
+    ap.add_argument("--checkpoints_dir", default="checkpoints")
+    ap.add_argument("--name", default="IPSR_inpainting")
+    ap.add_argument("--which_epoch", type=int, default=None,
+                    help="epoch checkpoint to serve (default 46; omit and "
+                         "give --random_weights for a smoke run)")
+    ap.add_argument("--random_weights", action="store_true",
+                    help="serve weights drawn from the config's seed")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=5000)
+    ap.add_argument("--static_dir", default="")
+    ap.add_argument("--max_batch", type=int, default=1,
+                    help="coalesce up to N concurrent requests into one "
+                         "device call (serve/batcher.py); 1 disables")
+    ap.add_argument("--batch_wait_ms", type=float, default=2.0,
+                    help="max straggler wait when coalescing")
+    ap.add_argument("--sp", action="store_true",
+                    help="spread each request over several devices (not "
+                         "ported yet)")
+    ap.add_argument("--quant", default="", choices=["", "none", "int8"],
+                    help="override the checkpoint config's quant mode "
+                         "(int8 is not ported yet)")
+    ap.add_argument("--from_export", default="",
+                    help="serve an artifact directory (`export`) instead "
+                         "of a checkpoint")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default) or 'cpu'")
+    args = ap.parse_args(argv)
+
+    if args.from_export and (args.quant or args.sp
+                             or args.which_epoch is not None
+                             or args.random_weights):
+        # the artifact is a traced graph with its weights; these options
+        # belong to `export`, and ignoring them would mislead
+        ap.error("--from_export serves the artifact exactly as exported; "
+                 "it cannot be combined with --quant/--sp/"
+                 "--which_epoch/--random_weights (export again with the "
+                 "wanted options instead)")
+
+    from wsgiref.simple_server import make_server
+
+    from .serve.app import ThreadingWSGIServer, make_app
+
+    cfg = _serving_config(args)
+    epoch = args.which_epoch
+    if epoch is None and not args.random_weights:
+        epoch = 46      # the reference's default
+    app = make_app(cfg, epoch, args.static_dir or None,
+                   max_batch=args.max_batch,
+                   batch_wait_ms=args.batch_wait_ms, sp=args.sp,
+                   from_export=args.from_export or None, device=args.device)
+    print(f"serving on http://{args.host}:{args.port}"
+          + (f" (coalescing up to {args.max_batch} requests)"
+             if args.max_batch > 1 else ""), flush=True)
+    make_server(args.host, args.port, app,
+                server_class=ThreadingWSGIServer).serve_forever()
+
+
+COMMANDS = {"train": train, "evaluate": evaluate, "export": export,
+            "serve": serve}
 
 
 def main(argv=None):

@@ -123,10 +123,13 @@ def bridge_state_dict(flat: Mapping[str, np.ndarray], module: nn.Module
     return out
 
 
-def load_flat(module: nn.Module, flat: Mapping[str, np.ndarray]
-              ) -> nn.Module:
-    """Load a flat JAX parameter dict (or an opened .npz) into `module`."""
-    module.load_state_dict(bridge_state_dict(flat, module), strict=True)
+def load_flat(module: nn.Module, flat: Mapping[str, np.ndarray],
+              assign: bool = False) -> nn.Module:
+    """Load a flat JAX parameter dict (or an opened .npz) into `module`.
+    assign=True takes the converted tensors as the module's own (for a
+    module built on the meta device)."""
+    module.load_state_dict(bridge_state_dict(flat, module), strict=True,
+                           assign=assign)
     return module
 
 

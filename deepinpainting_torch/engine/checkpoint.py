@@ -131,15 +131,37 @@ class CheckpointManager:
         the same config) and return it.  The file is read onto `device`
         ("cuda" unless given "cpu"), where `state` lives."""
         dev = resolve_device(device)
-        self.wait()     # an in-flight save may be this epoch
+        sd = torch.load(self._existing(epoch), map_location=dev,
+                        weights_only=True)
+        state.load_state_dict(sd)
+        return state
+
+    def restore_models(self, epoch: int, device: DeviceLike = None):
+        """G, P and VGG of epoch `epoch` for serving, in eval mode on
+        `device` ("cuda" unless given "cpu"), built from the manager's
+        config.  The file is mapped on the host and only those three
+        networks' tensors are read and moved to the device: D, F and the
+        optimisers are neither built nor loaded.  Each network loads
+        strictly."""
+        from .inpaint import Models, build_models
+        dev = resolve_device(device)
+        sd = torch.load(self._existing(epoch), map_location="cpu",
+                        mmap=True, weights_only=True)
+        with torch.device("meta"):
+            models = build_models(self._cfg)
+        for name, net in zip(Models._fields, models):
+            net.load_state_dict(sd[name], strict=True, assign=True)
+        return Models(*(net.to(dev).eval() for net in models))
+
+    def _existing(self, epoch: int) -> str:
+        """The path of epoch `epoch`'s file, after the write in flight (it
+        may be this epoch); FileNotFoundError if there is none."""
+        self.wait()
         if epoch not in self._epochs():
             raise FileNotFoundError(
                 f"no checkpoint for epoch {epoch} under {self.directory}; "
                 f"available: {self._epochs()}")
-        sd = torch.load(self.path(epoch), map_location=dev,
-                        weights_only=True)
-        state.load_state_dict(sd)
-        return state
+        return self.path(epoch)
 
     def _epochs(self) -> List[int]:
         return sorted(int(m.group(1)) for m in map(

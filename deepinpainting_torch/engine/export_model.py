@@ -1,0 +1,299 @@
+"""Serving artifact (torch.export): trace once, load with no tracing
+(counterpart of deepinpainting_tpu/engine/export_model.py).
+
+`export_serving` traces the uint8 serving function
+(engine/inpaint.py::serving_body) with torch.export and writes the graph
+next to the config and the three networks' flat .npz weights;
+`load_serving` reads the directory back into a callable with
+make_serving_fn's signature, (G, P, vgg, image_u8, mask_u8, ref_u8) ->
+uint8, that serves any request batch.
+
+Artifact directory layout::
+
+    meta.json         {"format": 2, "batch": "symbolic" | [1, 8],
+                       "device": "cuda" | "cpu"}
+    serving.pt2       symbolic-batch graph (torch.export.save)
+      — or —
+    serving_b{n}.pt2  one fixed-batch graph per n in meta's list
+    config.json       the Config the function was traced with
+    params_G.npz / params_P.npz / vgg.npz
+                      flat weights in the JAX package's key layout
+                      (engine/checkpoint.py::export_network_npz)
+
+Weights.  The graph takes G's, P's and VGG's state_dicts as arguments, as
+the JAX graph takes its parameter trees, so a .pt2 file carries no weight
+(export_serving checks that the graph holds no state and no constant
+tensor but the code's literals, and saves no example inputs): the .npz
+files are the artifact's one copy of the weights.  At load each loads
+strictly into its network built on the meta device (no weight is
+allocated or drawn before it), and the tensors move to the device once.
+
+Batch.  By default the graph is traced with a symbolic batch dimension,
+Dim("b", min=1), at an example batch of 2 (a traced batch of 1 would
+become a constant of the graph).  If that export fails, the fixed set
+FALLBACK_BATCHES is exported instead, and the reason is printed; an
+explicit `batch_sizes` forces the fixed set.  A fixed-set artifact serves
+any batch by pad-and-chunk dispatch (`_make_fixed_dispatch`).  Errors from
+writing the files always propagate.
+
+Differences from the JAX artifact:
+  * it is not free of model code: the graph calls the port's custom op
+    `deepinpainting::scan_stream` (ops/attention.py), so loading needs the
+    port's op library, which load_serving imports, and on the card the
+    nvcc-built kernel library, which _build.py compiles at the op's first
+    call.  JAX's artifact needs no model code.
+  * an artifact serves on the device type it was exported on: the graph
+    moves its inputs to that device.  load_serving refuses another device
+    type by name (the counterpart of JAX's `platforms`).
+  * attention_impl='torch' is refused: it exists to force the plain
+    versions on the card, and a traced plain scan would unroll its Python
+    loop into N steps of the graph.
+  * export traces under no_grad with the weights as plain tensor inputs,
+    so the attention takes its kbar-free primal: the graph calls the scan
+    op and never the kbar op.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from types import SimpleNamespace
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..config import Config
+from ..device import DeviceLike, resolve_device
+from ..ops.attention import OP_NAMESPACE, check_impl
+from .checkpoint import export_network_npz
+from .inpaint import Models, _as_tensor, build_models, serving_body
+
+FN_FILE = "serving.pt2"
+META_FILE = "meta.json"
+CFG_FILE = "config.json"
+NETS = ("G", "P", "vgg")
+NPZ_FILES = ("params_G.npz", "params_P.npz", "vgg.npz")
+FALLBACK_BATCHES = (1, 8)
+# the graph's constant tensors are the code's literals (ops/masks.py's
+# three hole-fill values); a network tensor would be far larger
+_MAX_LITERALS = 64
+SCAN_OP = f"{OP_NAMESPACE}.scan_stream"
+KBAR_OP = f"{OP_NAMESPACE}.kbar_build"
+
+
+def _weights(net: nn.Module) -> Dict[str, torch.Tensor]:
+    """The tensors of `net` that the graph takes: its parameters and
+    running statistics (`num_batches_tracked` is read in train mode only)."""
+    return {k: v.detach() for k, v in net.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+
+
+class _Nets(nn.Module):
+    """G, P and VGG under one root, whose forward is the serving body."""
+
+    def __init__(self, models: Models, serve):
+        super().__init__()
+        self.G, self.P, self.vgg = models
+        self._serve = serve
+
+    def forward(self, gt, mask, ref):
+        return self._serve(self.G, self.P, self.vgg, gt, mask, ref)
+
+
+class _Serving(nn.Module):
+    """What is exported: serve(G_sd, P_sd, vgg_sd, gt, mask, ref) with the
+    networks' tensors swapped in from the arguments.  The networks are held
+    outside the module's state, so the graph lifts none of them."""
+
+    def __init__(self, nets: _Nets):
+        super().__init__()
+        self._nets = (nets,)
+
+    def forward(self, G, P, vgg, gt, mask, ref):
+        tensors = {f"{name}.{k}": v for name, sd in zip(NETS, (G, P, vgg))
+                   for k, v in sd.items()}
+        return torch.func.functional_call(self._nets[0], tensors,
+                                          (gt, mask, ref))
+
+
+def _example(cfg: Config, batch: int, dev: torch.device):
+    s = cfg.fine_size
+    mask = torch.zeros((batch, s, s), dtype=torch.uint8, device=dev)
+    mask[:, s // 4:3 * s // 4, s // 4:3 * s // 4] = 1
+    img = torch.zeros((batch, s, s, 3), dtype=torch.uint8, device=dev)
+    return img, mask, img.clone()
+
+
+def _export(cfg: Config, models: Models, dev: torch.device, batch,
+            ) -> torch.export.ExportedProgram:
+    """The serving graph at `batch`: an int, or None for a symbolic batch
+    traced at an example batch of 2."""
+    module = _Serving(_Nets(models, serving_body(cfg, dev)))
+    sds = tuple(_weights(net) for net in models)
+    example = _example(cfg, batch or 2, dev)
+    dims = None
+    if batch is None:
+        b = torch.export.Dim("b", min=1)
+        dims = (*({k: None for k in sd} for sd in sds),
+                {0: b}, {0: b}, {0: b})
+    with torch.no_grad():
+        ep = torch.export.export(module, (*sds, *example),
+                                 dynamic_shapes=dims, strict=False)
+    literals = sum(t.numel() for t in ep.constants.values()
+                   if isinstance(t, torch.Tensor))
+    if ep.state_dict or literals > _MAX_LITERALS:
+        raise RuntimeError(
+            "the serving graph holds weights of its own: "
+            f"{sorted(ep.state_dict)[:5]} {sorted(ep.constants)[:5]}")
+    ep.example_inputs = None    # torch.export.save would write the weights
+    return ep
+
+
+def graph_ops(ep: torch.export.ExportedProgram) -> set:
+    """The names of the operators the graph calls, e.g.
+    'deepinpainting.scan_stream.default'."""
+    return {str(n.target) for n in ep.graph.nodes
+            if n.op == "call_function"}
+
+
+def export_serving(cfg: Config, models: Models, out_dir: str,
+                   batch_sizes: Optional[Sequence[int]] = None,
+                   device: DeviceLike = None) -> str:
+    """Trace the serving function of `models` (G, P, vgg on `device`, in
+    eval mode) and write the artifact into `out_dir`.  `batch_sizes` None
+    tries a symbolic batch first and falls back to FALLBACK_BATCHES; an
+    explicit sequence exports that fixed set.  Returns `out_dir`."""
+    dev = resolve_device(device)
+    cfg = cfg.replace(is_train=False, batch_size=1)
+    if check_impl(cfg.attention_impl) == "torch":
+        raise ValueError(
+            "attention_impl='torch' cannot be exported: it forces the plain "
+            "scan, whose loop over N positions would unroll into the graph")
+    os.makedirs(out_dir, exist_ok=True)
+    meta = {"format": 2, "device": dev.type}
+    graphs = {}
+    if batch_sizes is None:
+        try:
+            graphs[FN_FILE] = _export(cfg, models, dev, None)
+            meta["batch"] = "symbolic"
+        except Exception as e:      # tracing only: the writes come below
+            print(f"[export] symbolic-batch export failed "
+                  f"({type(e).__name__}); exporting the fixed batch set "
+                  f"{list(FALLBACK_BATCHES)} instead: {str(e)[:300]}",
+                  flush=True)
+            batch_sizes = FALLBACK_BATCHES
+    if batch_sizes is not None:
+        sizes = sorted({int(n) for n in batch_sizes})
+        if not sizes or sizes[0] < 1:
+            raise ValueError(f"batch_sizes must be positive ints, got "
+                             f"{batch_sizes!r}")
+        for n in sizes:
+            graphs[f"serving_b{n}.pt2"] = _export(cfg, models, dev, n)
+        meta["batch"] = sizes
+    for name, ep in graphs.items():
+        torch.export.save(ep, os.path.join(out_dir, name))
+    with open(os.path.join(out_dir, META_FILE), "w") as f:
+        json.dump(meta, f)
+    cfg.save(os.path.join(out_dir, CFG_FILE))
+    for name, net in zip(NPZ_FILES, models):
+        export_network_npz(net, os.path.join(out_dir, name))
+    return out_dir
+
+
+def _load_weights(cfg: Config, artifact_dir: str, dev: torch.device
+                  ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The npz weights on `dev`, keyed as the graph takes them.  Each npz
+    loads strictly into its network built on the meta device."""
+    from ..convert.jax_bridge import load_flat
+    with torch.device("meta"):
+        nets = build_models(cfg)
+    out = {}
+    for name, npz, net in zip(NETS, NPZ_FILES, nets):
+        with np.load(os.path.join(artifact_dir, npz)) as raw:
+            load_flat(net, raw, assign=True)
+        out[name] = {k: v.to(dev) for k, v in _weights(net).items()}
+    return out
+
+
+def _make_fixed_dispatch(calls):
+    """Any-batch callable over a {batch_size: call} dict: pick the smallest
+    exported size that fits, pad a short chunk by repeating its last row
+    (a per-sample graph: pad rows cannot change real rows), chunk requests
+    larger than the largest exported size."""
+    sizes = sorted(calls)
+
+    def call(G, P, vgg, image, mask, ref):
+        image, mask, ref = (torch.as_tensor(x) for x in (image, mask, ref))
+        n = image.shape[0]
+        if n == 0:
+            raise ValueError("empty batch: image has leading dimension 0")
+        outs = []
+        i = 0
+        while i < n:
+            b = next((x for x in sizes if x >= n - i), sizes[-1])
+            take = min(n - i, b)
+
+            def chunk(a):
+                c = a[i:i + take]
+                if take < b:
+                    c = torch.cat([c, c[-1:].expand(b - take, *c.shape[1:])])
+                return c
+
+            out = calls[b](G, P, vgg, chunk(image), chunk(mask), chunk(ref))
+            outs.append(out[:take])
+            i += take
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    return call
+
+
+def load_serving(artifact_dir: str, device: DeviceLike = None
+                 ) -> SimpleNamespace:
+    """Load an export_serving artifact onto `device` ("cuda" unless given
+    "cpu"), which must be of the device type it was exported on.
+
+    Returns a namespace with `.cfg`, `.G/.P/.vgg` (the weights on the
+    device, as the graph takes them), `.batch` ("symbolic" or the exported
+    size list), `.device`, `.exported` (the ExportedPrograms) and `.call`,
+    (G, P, vgg, image_u8, mask_u8, ref_u8) -> uint8 on the device, for any
+    request batch; inputs may be numpy arrays or tensors.
+    """
+    dev = resolve_device(device)
+    meta_path = os.path.join(artifact_dir, META_FILE)
+    if not os.path.exists(meta_path):
+        raise FileNotFoundError(
+            f"no serving artifact at [{artifact_dir}] (missing {META_FILE}); "
+            "create one with export_serving or `_cli export`")
+    with open(meta_path) as f:
+        meta = json.load(f)
+    if meta.get("device") != dev.type:
+        raise ValueError(
+            f"the artifact at [{artifact_dir}] was exported on device type "
+            f"{meta.get('device')!r} and serves there only, not on "
+            f"{dev.type!r}; export it again on {dev.type!r}")
+    cfg = Config.load(os.path.join(artifact_dir, CFG_FILE))
+    weights = _load_weights(cfg, artifact_dir, dev)
+
+    def runner(ep):
+        fn = ep.module()
+
+        @torch.inference_mode()
+        def run(G, P, vgg, image, mask, ref):
+            return fn(G, P, vgg, *(_as_tensor(x, dev)
+                                   for x in (image, mask, ref)))
+        return run
+
+    if meta["batch"] == "symbolic":
+        exported = {"symbolic": torch.export.load(
+            os.path.join(artifact_dir, FN_FILE))}
+        call = runner(exported["symbolic"])
+    else:
+        exported = {int(n): torch.export.load(
+            os.path.join(artifact_dir, f"serving_b{n}.pt2"))
+            for n in meta["batch"]}
+        call = _make_fixed_dispatch({n: runner(ep)
+                                     for n, ep in exported.items()})
+    return SimpleNamespace(cfg=cfg, batch=meta["batch"], device=dev,
+                           exported=exported, call=call, **weights)

@@ -315,17 +315,13 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     return x.to(device)
 
 
-def make_inference_fn(cfg: Config, device: DeviceLike = None):
-    """infer(G, P, vgg, gt, mask, ref) -> (fake_B, fake_P), NHWC f32 on
-    `device`.  gt/ref: [B,H,W,3] uint8 (or [-1,1] f32), numpy or tensor;
-    mask [B,H,W] (uint8 0/1, or f32).  The networks must already be on
-    `device` and in eval mode (init_params returns them so)."""
-    dev = resolve_device(device)
+def _inference_body(cfg: Config, dev: torch.device):
+    """The body of the inference function, with no grad-mode context of
+    its own."""
     check_config(cfg)
     impl = check_impl(cfg.attention_impl)
     dt = compute_dtype(cfg)
 
-    @torch.inference_mode()
     def infer(G, P, vgg, gt, mask, ref):
         gt = normalize_image(_as_tensor(gt, dev)).permute(0, 3, 1, 2)
         ref = normalize_image(_as_tensor(ref, dev)).permute(0, 3, 1, 2)
@@ -341,23 +337,39 @@ def make_inference_fn(cfg: Config, device: DeviceLike = None):
     return infer
 
 
+def make_inference_fn(cfg: Config, device: DeviceLike = None):
+    """infer(G, P, vgg, gt, mask, ref) -> (fake_B, fake_P), NHWC f32 on
+    `device`.  gt/ref: [B,H,W,3] uint8 (or [-1,1] f32), numpy or tensor;
+    mask [B,H,W] (uint8 0/1, or f32).  The networks must already be on
+    `device` and in eval mode (init_params returns them so)."""
+    return torch.inference_mode()(
+        _inference_body(cfg, resolve_device(device)))
+
+
 def to_uint8(x: torch.Tensor) -> torch.Tensor:
     """tensor2im quantization: floor(clip((x+1)*127.5, 0, 255))."""
     return torch.floor(torch.clamp((x + 1.0) * 127.5, 0.0, 255.0)
                        ).to(torch.uint8)
 
 
-def make_serving_fn(cfg: Config, device: DeviceLike = None):
-    """serve(G, P, vgg, gt, mask, ref) -> uint8 [B,H,W,3] on `device`;
-    the quantization runs on the device, so 1 byte/px crosses to the
-    host."""
-    infer = make_inference_fn(cfg, device)
+def serving_body(cfg: Config, device: DeviceLike = None):
+    """The body of make_serving_fn, with no grad-mode context of its own:
+    make_serving_fn runs it under inference_mode, and
+    engine/export_model.py traces it under no_grad."""
+    infer = _inference_body(cfg, resolve_device(device))
 
     def serve_fn(G, P, vgg, gt, mask, ref):
         fake_B, _ = infer(G, P, vgg, gt, mask, ref)
         return to_uint8(fake_B)
 
     return serve_fn
+
+
+def make_serving_fn(cfg: Config, device: DeviceLike = None):
+    """serve(G, P, vgg, gt, mask, ref) -> uint8 [B,H,W,3] on `device`;
+    the quantization runs on the device, so 1 byte/px crosses to the
+    host."""
+    return torch.inference_mode()(serving_body(cfg, device))
 
 
 # ---------------------------------------------------------------------------

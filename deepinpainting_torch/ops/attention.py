@@ -20,16 +20,18 @@ reference image `ref`, with per-position masked flags:
 
 Steps 1-3 (`prep`) are one large product plus reductions and stay plain
 PyTorch, as the JAX package leaves them to XLA.  Step 4 is the sequential
-part: on a CUDA tensor it is the hand-written kernel in
-ops/attention_cuda.py, on a CPU tensor `scan_stream_reference` below.
+part, the custom op `deepinpainting::scan_stream`: on a CUDA tensor the
+hand-written kernel in ops/attention_cuda.py, on a CPU tensor
+`scan_stream_reference` below.
 
 Inference needs nothing more: the scan's `out` is the result.  Under
 differentiation the forward also materialises the attention matrix
 
   5. kbar[q, :] = a_q*row_prev + b_q*onehot(ind_q) on masked q (the row
-     carry advances), onehot(ind_q) on unmasked q (`kbar_build`: the second
-     hand-written kernel on a CUDA tensor, `kbar_build_reference` on a CPU
-     one), from the (a, b) the scan emitted;
+     carry advances), onehot(ind_q) on unmasked q (the custom op
+     `deepinpainting::kbar_build`: the second hand-written kernel on a CUDA
+     tensor, `kbar_build_reference` on a CPU one), from the (a, b) the scan
+     emitted;
   6. decodes out = kbar @ P (a batched matrix product, left to the library
      as the JAX package leaves it to XLA; it equals the scan's `out` up to
      rounding);
@@ -49,6 +51,9 @@ import torch
 from . import attention_cuda
 
 _NORM_EPS = 1e-8
+
+# The namespace of the port's custom ops: torch.ops.deepinpainting.*
+OP_NAMESPACE = "deepinpainting"
 
 # Config.attention_impl values -> the scan used on the card.  'pallas' and
 # 'lax' are the JAX package's names for the same two choices.
@@ -130,14 +135,26 @@ def scan_stream_reference(flag: torch.Tensor, vmax: torch.Tensor,
     return out, a_all, b_all
 
 
+@torch.library.custom_op(f"{OP_NAMESPACE}::scan_stream", mutates_args=(),
+                         device_types="cpu")
 def scan_stream(flag: torch.Tensor, vmax: torch.Tensor, pn: torch.Tensor,
                 known: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The recurrence on the tensors' device: the CUDA kernel for CUDA
-    tensors (which launches or raises), the plain version for CPU ones."""
-    if pn.is_cuda:
-        return attention_cuda.scan_stream_cuda(flag, vmax, pn, known)
+    """The recurrence as the custom op `deepinpainting::scan_stream`,
+    dispatched by the tensors' device: the CUDA kernel for CUDA tensors
+    (which launches or raises), the plain version for CPU ones; any other
+    device has no implementation.  Returns (out [B,N,C], a [B,N], b
+    [B,N]), new tensors."""
     return scan_stream_reference(flag, vmax, pn, known)
+
+
+scan_stream.register_kernel("cuda")(attention_cuda.scan_stream_cuda)
+
+
+@scan_stream.register_fake
+def _scan_stream_fake(flag, vmax, pn, known):
+    return (torch.empty_like(known), torch.empty_like(vmax),
+            torch.empty_like(vmax))
 
 
 def kbar_build_reference(flag: torch.Tensor, ind: torch.Tensor,
@@ -164,14 +181,23 @@ def kbar_build_reference(flag: torch.Tensor, ind: torch.Tensor,
     return kbar
 
 
+@torch.library.custom_op(f"{OP_NAMESPACE}::kbar_build", mutates_args=(),
+                         device_types="cpu")
 def kbar_build(flag: torch.Tensor, ind: torch.Tensor, a: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
-    """The attention matrix on the tensors' device: the CUDA kernel for
-    CUDA tensors (which launches or raises), the plain version for CPU
-    ones."""
-    if flag.is_cuda:
-        return attention_cuda.kbar_build_cuda(flag, ind, a, b)
+    """The attention matrix as the custom op `deepinpainting::kbar_build`,
+    dispatched by the tensors' device like `scan_stream`.  ind is int32 or
+    int64.  Returns kbar [B,N,N] f32, a new tensor."""
     return kbar_build_reference(flag, ind, a, b)
+
+
+kbar_build.register_kernel("cuda")(attention_cuda.kbar_build_cuda)
+
+
+@kbar_build.register_fake
+def _kbar_build_fake(flag, ind, a, b):
+    bsz, n = flag.shape
+    return flag.new_empty((bsz, n, n), dtype=torch.float32)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:

@@ -5,11 +5,13 @@
   * `kbar_build_cuda` (csrc/kbar_build.cu), the attention-matrix kernel of
     the training forward, which replaces `_kbar_kernel` of the same file.
 
-Each takes CUDA tensors only and launches its kernel or raises; the choice
-between a kernel and its plain version (ops/attention.py::
-scan_stream_reference, kbar_build_reference) is made by the tensors' device
-in ops/attention.py::scan_stream and kbar_build.  The kernels are built
-with nvcc at first use (_build.py) and bound with ctypes.
+Each takes CUDA tensors only and launches its kernel or raises.  They are
+the CUDA implementations of the custom ops `deepinpainting::scan_stream`
+and `deepinpainting::kbar_build` (ops/attention.py), whose CPU
+implementations are the plain versions (scan_stream_reference,
+kbar_build_reference): the ops choose by the tensors' device.  The
+kernels are built with nvcc at first use (_build.py) and bound with
+ctypes.
 
 `launches` (scan) and `kbar_launches` count the kernel launches made
 through each wrapper, so a run can show that its main path went through

@@ -1,1 +1,1 @@
-"""Serving: the in-memory inference session and its micro-batcher."""
+"""Serving: the WSGI app, the inference session and its micro-batcher."""

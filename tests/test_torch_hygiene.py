@@ -19,8 +19,10 @@ from deepinpainting_torch.device import resolve_device
 from deepinpainting_torch.engine import inpaint as TI
 from deepinpainting_torch.engine.checkpoint import CheckpointManager
 from deepinpainting_torch.engine.evaluator import evaluate
+from deepinpainting_torch.engine.export_model import (export_serving,
+                                                      load_serving)
 from deepinpainting_torch.engine.trainer import Trainer
-from deepinpainting_torch.serve.app import InferenceSession
+from deepinpainting_torch.serve.app import InferenceSession, make_app
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "deepinpainting_torch"
@@ -49,6 +51,8 @@ def test_import_loads_no_jax():
         "import deepinpainting_torch.engine.trainer\n"
         "import deepinpainting_torch.engine.evaluator\n"
         "import deepinpainting_torch.engine.checkpoint\n"
+        "import deepinpainting_torch.engine.export_model\n"
+        "import deepinpainting_torch.demo\n"
         "import deepinpainting_torch.utils.profiling\n"
         "import deepinpainting_torch.utils.params\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -102,6 +106,12 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
         lambda: Trainer(ckpt_cfg, None),
         lambda: evaluate(TINY, None, None),
         lambda: CheckpointManager(ckpt_cfg).restore(1, None),
+        lambda: CheckpointManager(ckpt_cfg).restore_models(1),
+        lambda: InferenceSession(ckpt_cfg, 1),
+        lambda: make_app(ckpt_cfg, 1),
+        lambda: make_app(TINY, from_export=str(tmp_path)),
+        lambda: export_serving(TINY, None, str(tmp_path / "art")),
+        lambda: load_serving(str(tmp_path)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -110,6 +120,19 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
     assert resolve_device("cpu").type == "cpu"
     fn, args = TE.entry(device="cpu", cfg=TINY)
     assert fn(*args).shape == (1, 64, 64, 3)
+
+
+def test_cuda_device_turns_tf32_off(monkeypatch):
+    """f32 on the card is full f32, as in the reference: every entry point
+    resolves its device, and resolving a CUDA one turns TF32 off."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    resolve_device("cpu")
+    assert torch.backends.cudnn.allow_tf32
+    assert resolve_device().type == "cuda"
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
 
 
 def test_unported_options_are_refused():

@@ -294,3 +294,52 @@ def test_tiny_serving_on_card_matches_cpu(cuda):
     want, _ = TI.make_inference_fn(cfg, "cpu")(*cpu, gt, mask, ref)
     assert TAC.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-3)
+
+
+def test_custom_ops_dispatch_to_the_kernels(cuda):
+    """On CUDA tensors the ops `deepinpainting::scan_stream` and
+    `deepinpainting::kbar_build` are the kernel wrappers: each call
+    launches once and gives the wrapper's bits."""
+    flag, vmax, pn, known = (t.to(cuda).contiguous() for t in
+                             _scan_inputs(2, 1024, 512, (100, 600), seed=3))
+    before = (TAC.launches, TAC.kbar_launches)
+    out = torch.ops.deepinpainting.scan_stream(flag, vmax, pn, known)
+    want = TAC.scan_stream_cuda(flag, vmax, pn, known)
+    ind = torch.randint(0, 1024, (2, 1024), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+    kbar = torch.ops.deepinpainting.kbar_build(flag, ind.int(), out[1],
+                                               out[2])
+    torch.cuda.synchronize()
+    assert (TAC.launches, TAC.kbar_launches) == (before[0] + 2,
+                                                 before[1] + 1)
+    for g, w in zip(out, want):
+        assert torch.equal(g, w)
+    assert torch.equal(kbar, TA.kbar_build_reference(flag, ind, out[1],
+                                                     out[2]))
+
+
+def test_exported_serving_on_card(cuda, tmp_path, monkeypatch):
+    """The tiny config's artifact exported and loaded on the card: equal
+    to the live serving function at B=1 and B=3, one scan launch a call.
+    cuDNN's default transposed convolution sums with atomics (two live
+    calls may differ by 1 in a uint8 pixel), so both run with its
+    deterministic algorithms."""
+    from deepinpainting_torch.engine import export_model as EM
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = Config(fine_size=64, ngf=8, vgg_width_scale=1 / 8)
+    models = TI.init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    EM.export_serving(cfg, models, str(tmp_path), device=cuda)
+    loaded = EM.load_serving(str(tmp_path), cuda)
+    live = TI.make_serving_fn(cfg, cuda)
+    rng = np.random.default_rng(0)
+    for b in (1, 3):
+        img = rng.integers(0, 256, (b, 64, 64, 3), dtype=np.uint8)
+        mask = np.zeros((b, 64, 64), np.uint8)
+        mask[:, 16:40, 20:44] = 1
+        before = TAC.launches
+        got = loaded.call(loaded.G, loaded.P, loaded.vgg, img, mask, img)
+        torch.cuda.synchronize()
+        assert TAC.launches == before + 1
+        assert torch.equal(got, live(*models, img, mask, img))
+    with pytest.raises(ValueError, match="'cuda'"):
+        EM.load_serving(str(tmp_path), "cpu")
