@@ -54,7 +54,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      export and load times, bytes, the loaded call against the live
      serving function at B = 1, 3, 8, 9 bit for bit, the scan's launches
      inside it, a graph with the scan op and no kbar op, and
-     InferenceSession.from_export's p50 and b8.
+     InferenceSession.from_export's p50 and b8;
+ 10. the conv knobs at 256 px, full width: (a) every distinct int8-eligible
+     conv of the serving path at B=1 and B=8, its int32 sums against the
+     plain version on the card bit for bit, the int8 path's ms beside f32
+     and bf16 cuDNN; (b) int8 serving of phase 5's trained weights (b1 p50,
+     b8, fake_B against f32, launches) and int8 with the kernel against
+     int8 with the plain scan at phase 4's small hole; (c) the int8
+     artifact bit for bit with live int8 serving at B=1 and B=8; (d) both
+     pack modes: serving, fake_B against unpacked, one train step against
+     phase 5's unpacked step, ms a step and peak memory, and a remat step
+     whose recompute builds the forward's kbar bit for bit.
 Three lines end the output, each on its own: a JSON object with a `kernels`
 list, the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -93,6 +103,8 @@ TIMED_STEPS = 5        # more steps after those, for a steadier median
 TRAIN_BATCH = 8
 SCAN_C = 512           # attention channels at the default width (8*ngf)
 P8_SIZE = 512          # phase 8: N = (512/8)^2 = 4096 attention positions
+INT8_GAP = 0.05        # int8 against f32: mean |d| (JAX's own limit)
+PACK_TOL = 1e-4        # packed fake_B against unpacked, small hole
 BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
 
@@ -1075,6 +1087,421 @@ def serving_program(dev, card: str, p9_cfg, epoch: int, requests, live,
     return paths
 
 
+@contextlib.contextmanager
+def int8_in(net):
+    """Within the block, `net`'s forward runs under the int8 conv mode
+    alone (whatever mode its caller entered)."""
+    from deepinpainting_torch.ops import convs as TC
+    forward = net.forward
+
+    def int8_forward(*args, **kwargs):
+        with TC.use_modes(TC.ConvModes(int8=True)):
+            return forward(*args, **kwargs)
+
+    net.forward = int8_forward
+    try:
+        yield
+    finally:
+        del net.forward
+
+
+def int8_conv_shapes(models, cfg, dev, request) -> list:
+    """Every distinct int8-eligible conv of one int8 serving forward of
+    `models` at cfg's size: [(label, module, kind, (C, H, W) of its
+    input)], in the order the forward meets them."""
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.ops import convs as TC
+    from deepinpainting_torch.ops import quant as TQ
+    seen, hooks = {}, []
+
+    def hook_for(net_name):
+        def hook(mod, args):
+            kind = ("deconv" if isinstance(mod, TC.ConvTranspose2d)
+                    else "conv")
+            w = mod.weight
+            cin, cout = w.shape[:2] if kind == "deconv" else w.shape[1::-1]
+            if not TQ.eligible(cin, cout):
+                return
+            k, st, p, d = (w.shape[2], mod.stride[0], mod.padding[0],
+                           mod.dilation[0])
+            shape = tuple(args[0].shape[1:])
+            key = (kind, cin, cout, k, st, p, d, shape)
+            label = (f"{net_name} {kind} k{k}s{st}p{p}" + (f"d{d}" if d > 1
+                                                           else "")
+                     + f" {cin}->{cout} @{shape[1]}x{shape[2]}")
+            seen.setdefault(key, (label, mod, kind, shape))
+        return hook
+
+    for name, net in zip(("VGG", "netP", "netG"), (models.vgg, models.P,
+                                                   models.G)):
+        for m in net.modules():
+            if isinstance(m, (TC.Conv2d, TC.ConvTranspose2d)):
+                hooks.append(m.register_forward_pre_hook(hook_for(name)))
+    try:
+        TI.make_serving_fn(cfg.replace(quant="int8"), dev)(models.G,
+                                                           models.P,
+                                                           models.vgg,
+                                                           *request)
+    finally:
+        for h in hooks:
+            h.remove()
+    order = {"VGG": 0, "netP": 1, "netG": 2}
+    return sorted(seen.values(), key=lambda v: order[v[0].split()[0]])
+
+
+def conv_knobs(dev, card: str, p9_cfg, epoch: int, tcfg, small,
+               small_batch, unpacked_losses: dict, train_batches,
+               phase6: dict, n_b1: int = 20, n_b8: int = 32,
+               reps: int = 10) -> dict:
+    """Phase 10: the conv knobs (int8, pack_small_cin, pack_out) at
+    p9_cfg's size, full width, on phase 5's trained weights (epoch
+    `epoch` of p9_cfg's checkpoint).  (a) int8 per conv shape; (b) int8
+    serving; (c) the int8 artifact; (d) the pack modes, serving and
+    training.  Returns each path's launches and the figures."""
+    import torch
+    import torch.nn.functional as F
+    from deepinpainting_torch.config import Config
+    from deepinpainting_torch.engine import export_model as EM
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.ops import attention as TA
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.ops import masks as TM
+    from deepinpainting_torch.ops import quant as TQ
+    from deepinpainting_torch.serve.app import InferenceSession
+    from deepinpainting_torch.utils.metrics import psnr
+
+    s = p9_cfg.fine_size
+    q_cfg = p9_cfg.replace(quant="int8")
+    pk_cfg = p9_cfg.replace(pack_small_cin=True, pack_out=True)
+    counts = lambda: {"scan_stream": TAC.launches,
+                      "kbar_build": TAC.kbar_launches}
+    paths, figures = {}, {}
+    rng = np.random.default_rng(10)
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def image(b=1):
+        return rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)
+
+    def center(b=1):
+        m = np.zeros((b, s, s), np.uint8)
+        lo, hi = s // 4 + p9_cfg.overlap, 3 * s // 4 - p9_cfg.overlap
+        m[:, lo:hi, lo:hi] = 1
+        return m
+
+    def stroke():
+        return TM.random_stroke_mask(gen, s).to(torch.uint8).cpu().numpy(
+            )[None]
+
+    def requests(n):
+        return [(image(), center() if i % 2 else stroke(), image())
+                for i in range(n)]
+
+    f32 = InferenceSession(p9_cfg, epoch, device=dev)
+    models = f32.state
+
+    # ---- (a) int8 per conv shape, B=1 and B=8 ----
+    t0 = time.perf_counter()
+    shapes = int8_conv_shapes(models, p9_cfg, dev, requests(1)[0])
+    totals = {b: {"int8": 0.0, "f32": 0.0, "bf16": 0.0} for b in (1, 8)}
+    rows = []
+    for label, mod, kind, (c, h, w) in shapes:
+        weight, bias = mod.weight.detach(), mod.bias
+        bias = None if bias is None else bias.detach()
+        st, p, d = mod.stride[0], mod.padding[0], mod.dilation[0]
+        if kind == "conv":
+            fast = lambda a, q: TQ.conv2d_int32(a, q, st, p, d)
+            plain = lambda a, q: TQ.conv2d_int32_reference(a, q, st, p, d)
+            int8 = lambda x: TQ.conv2d_int8(x, weight, bias, st, p, d)
+            lib = lambda x, wt, bs: F.conv2d(x, wt, bs, st, p, d)
+        else:
+            fast = lambda a, q: TQ.conv_transpose2d_int32(a, q, st, p)
+            plain = lambda a, q: TQ.conv_transpose2d_int32_reference(
+                a, q, st, p)
+            int8 = lambda x: TQ.conv_transpose2d_int8(x, weight, bias, st, p)
+            lib = lambda x, wt, bs: F.conv_transpose2d(x, wt, bs, st, p)
+        row = {"label": label}
+        for b in (1, 8):
+            x = torch.randn((b, c, h, w), device=dev,
+                            generator=gen).relu_()
+            xq, _ = TQ.quantize_activation(x)
+            wq, _ = TQ.quantize_weight(weight, transposed=kind == "deconv")
+            got, want = fast(xq, wq), plain(xq, wq)
+            same = bool(torch.equal(got, want))
+            check(same, f"(a) {label} B={b}: int32 sums vs plain version")
+            xb, wb = x.bfloat16(), weight.bfloat16()
+            bb = None if bias is None else bias.bfloat16()
+            t = {"int8": cuda_ms(lambda: int8(x), reps),
+                 "f32": cuda_ms(lambda: lib(x, weight, bias), reps),
+                 "bf16": cuda_ms(lambda: lib(xb, wb, bb), reps)}
+            for k, v in t.items():
+                totals[b][k] += v
+            row[b] = t
+            row[f"rows{b}"] = got.shape[0] * got.shape[2] * got.shape[3]
+            del x, xq, wq, got, want, xb, wb
+        rows.append(row)
+        log(f"phase 10 (a) {label}: int32 sums bit for bit with the plain "
+            f"version at B=1 ({row['rows1']} rows) and B=8; ms B=1 int8 "
+            f"{row[1]['int8']:.4f} f32 {row[1]['f32']:.4f} bf16 "
+            f"{row[1]['bf16']:.4f}; B=8 int8 {row[8]['int8']:.4f} f32 "
+            f"{row[8]['f32']:.4f} bf16 {row[8]['bf16']:.4f}")
+    check(any(r["rows1"] <= 16 for r in rows),
+          "(a) a conv with at most 16 output rows (the padded M)")
+    for b in (1, 8):
+        tb = totals[b]
+        log(f"phase 10 (a) sum over the {len(rows)} shapes at B={b}: int8 "
+            f"{tb['int8']:.3f} ms, f32 cuDNN {tb['f32']:.3f} ms, bf16 "
+            f"cuDNN {tb['bf16']:.3f} ms (medians of {reps} single calls; "
+            f"int8 {tb['int8'] / tb['f32']:.3f} of f32, "
+            f"{tb['int8'] / tb['bf16']:.3f} of bf16)  [{card}]")
+    figures["a"] = {"shapes": len(rows), "totals": totals,
+                    "s": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+
+    # ---- (b) int8 serving ----
+    def serve(label, cfg_):
+        """b1 p50 over n_b1 requests and b8 img/s over n_b8, with the
+        launches of exactly those requests."""
+        single = InferenceSession(cfg_, state=models, device=dev)
+        batched = InferenceSession(cfg_, state=models, device=dev,
+                                   max_batch=8, batch_wait_ms=50.0)
+        single.run(*requests(1)[0])
+        reqs, jobs = requests(n_b1 + 1), requests(n_b8)
+        torch.cuda.synchronize()
+        calls0 = single.calls, batched.calls
+        TAC.launches = TAC.kbar_launches = 0   # counts: this path only
+        lat = []
+        for r in reqs:
+            t0 = time.perf_counter()
+            out = single.run(*r)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(out.dtype == np.uint8 and out.shape == (1, s, s, 3)
+                  and out.std() > 0, f"{label}: uint8, not constant")
+        img_s = concurrent_img_s(f"{label} requests", [
+            lambda r=r: batched.run(*r) for r in jobs])
+        torch.cuda.synchronize()
+        launches = counts()
+        forwards = (single.calls - calls0[0]) + (batched.calls - calls0[1])
+        check(launches == {"scan_stream": forwards, "kbar_build": 0},
+              f"{label}: one scan launch a netG forward, no kbar")
+        for x in (single, batched):
+            x.close()
+        p50 = statistics.median(lat[1:])
+        log(f"phase 10 {label}: b1 request p50 {p50:.2f} ms ({n_b1} "
+            f"requests), b8 {img_s:.2f} img/s ({n_b8} requests over 8 "
+            f"clients, {batched.calls - calls0[1]} batched calls), launches "
+            f"{launches}; phase 6 f32 in this run: b1 p50 "
+            f"{phase6['p50']:.2f} ms, b8 {phase6['img_s']:.2f} img/s  "
+            f"[{card}]")
+        return {"p50": p50, "img_s": img_s}, launches
+
+    figures["b"], paths["serving_int8"] = serve("(b) int8 serving", q_cfg)
+    # int8 against f32 on the same weights.  With the default
+    # faithful_known_replacement every position of netG's attention level
+    # takes its best-matching reference patch, an argmax over near-equal
+    # scores of untrained features that any rounding can flip, so fake_B's
+    # gap is printed beside bf16's own, with known replacement off at the
+    # small hole, and with int8 in one network at a time.  JAX's limit is
+    # held on fake_P (netP has no attention) and in the setting of the JAX
+    # package's own test (tests/test_quant.py:95-120: the tiny config,
+    # fresh weights, uniform images, the centre quarter; 64 px here, the
+    # port's smallest size).
+    batch = [np.concatenate(x) for x in zip(*requests(8))]
+    out = {name: TI.make_inference_fn(c, dev)(*models, *batch)
+           for name, c in (("f32", p9_cfg), ("int8", q_cfg),
+                           ("bf16", p9_cfg.replace(dtype="bfloat16")))}
+    check(all(bool(torch.isfinite(t).all()) for t in out["int8"]),
+          "int8 fake_B and fake_P must be finite")
+    gap = lambda a, b: (a - b).abs().mean().item()
+    per_net = {}
+    for name in ("vgg", "P", "G"):
+        with int8_in(getattr(models, name)):
+            per_net[name] = gap(TI.make_inference_fn(p9_cfg, dev)(
+                *models, *batch)[0], out["f32"][0])
+    gt, ref = image(), image()
+    no_kr = lambda c: TI.make_inference_fn(
+        c.replace(faithful_known_replacement=False), dev)(
+            *models, gt, small, ref)[0]
+    small_f32 = no_kr(p9_cfg)
+    match = psnr(out["f32"][0].permute(0, 3, 1, 2),
+                 out["int8"][0].permute(0, 3, 1, 2))
+    tiny = Config(fine_size=64, ngf=8, ndf=8, vgg_width_scale=1 / 8,
+                  is_train=False)
+    trng = np.random.default_rng(4)
+    tgt, tref = trng.uniform(-1, 1, (2, 1, 64, 64, 3)).astype(np.float32)
+    tmask = np.zeros((1, 64, 64), np.float32)
+    tmask[:, 24:40, 24:40] = 1.0
+    tmodels = TI.init_params(tiny, torch.Generator().manual_seed(0), dev)
+    t_out = [TI.make_inference_fn(tiny.replace(quant=q), dev)(
+        *tmodels, tgt, tmask, tref)[0] for q in ("none", "int8")]
+    figures["b"].update(
+        mean_d=gap(out["int8"][0], out["f32"][0]),
+        max_d=(out["int8"][0] - out["f32"][0]).abs().max().item(),
+        psnr=match.mean().item(),
+        bf16_mean_d=gap(out["bf16"][0], out["f32"][0]),
+        fake_P_mean_d=gap(out["int8"][1], out["f32"][1]),
+        small_no_kr=gap(no_kr(q_cfg), small_f32),
+        small_no_kr_bf16=gap(no_kr(p9_cfg.replace(dtype="bfloat16")),
+                             small_f32),
+        per_net=per_net, jax_test=gap(t_out[1], t_out[0]))
+    fb = figures["b"]
+    log(f"phase 10 (b) int8 against f32 on the same weights, 8 requests "
+        f"(center holes and random_stroke_mask strokes): fake_B mean |d| "
+        f"{fb['mean_d']:.5f}, max {fb['max_d']:.4f}, PSNR {fb['psnr']:.2f} "
+        f"dB (per-image {', '.join(f'{v:.2f}' for v in match.tolist())}); "
+        f"bf16's own {fb['bf16_mean_d']:.5f}; int8 in one network only: "
+        + ", ".join(f"{k} {v:.5f}" for k, v in per_net.items())
+        + f"; small hole, known replacement off: int8 {fb['small_no_kr']:.5f}"
+        f", bf16 {fb['small_no_kr_bf16']:.5f}; fake_P mean |d| "
+        f"{fb['fake_P_mean_d']:.5f} (limit {INT8_GAP}); JAX's test setting "
+        f"(64 px tiny config, fresh weights): fake_B mean |d| "
+        f"{fb['jax_test']:.5f} (limit {INT8_GAP})")
+    check(fb["fake_P_mean_d"] <= INT8_GAP, "int8 fake_P against f32")
+    check(fb["jax_test"] < INT8_GAP and not torch.equal(*t_out),
+          "int8 against f32 in the JAX package's test setting")
+    del out, small_f32, tmodels, t_out
+    gtf = torch.from_numpy(gt).to(dev).float() / 127.5 - 1.0
+    infer_k = TI.make_inference_fn(q_cfg.replace(attention_impl="cuda"), dev)
+    infer_p = TI.make_inference_fn(q_cfg.replace(attention_impl="torch"),
+                                   dev)
+    # deterministic cuDNN: int8 turns the 1-LSB noise of cuDNN's default
+    # transposed conv (netP's last layer) into flipped q values downstream
+    with deterministic_cudnn():
+        kb, _ = infer_k(*models, gtf, small, ref)
+        pb, _ = infer_p(*models, gtf, small, ref)
+        qb, _ = infer_p(*models, gtf * (1.0 + PERTURB), small, ref)
+    d_small = (kb - pb).abs().max().item()
+    log(f"phase 10 (b) int8 at phase 4's small hole: fake_B kernel vs "
+        f"plain scan max|d|={d_small:.3e} (limit {E2E_TOL}); int8's own "
+        f"envelope (input x (1 + {PERTURB})) max "
+        f"{(pb - qb).abs().max().item():.3e} mean "
+        f"{(pb - qb).abs().mean().item():.3e}")
+    check(d_small <= E2E_TOL, "int8 small-hole fake_B kernel vs plain")
+    del kb, pb, qb
+
+    # ---- (c) the int8 artifact ----
+    art = os.path.join(p9_cfg.checkpoints_dir, "artifact_int8")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    EM.export_serving(q_cfg, models, art, device=dev)
+    export_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(art, f))
+                 for f in os.listdir(art))
+    t0 = time.perf_counter()
+    loaded = EM.load_serving(art, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    ops = EM.graph_ops(next(iter(loaded.exported.values())))
+    check("aten._int_mm.default" in ops and f"{EM.SCAN_OP}.default" in ops
+          and not any(EM.KBAR_OP in op for op in ops),
+          "the int8 graph calls _int_mm and the scan op, not kbar")
+    live = TI.make_serving_fn(q_cfg, dev)
+    sizes = (1, 8)
+    batches = {b: [np.concatenate(x) for x in zip(*requests(b))]
+               for b in sizes}
+    with deterministic_cudnn():
+        want = {b: live(*models, *x) for b, x in batches.items()}
+        torch.cuda.synchronize()
+        TAC.launches = TAC.kbar_launches = 0   # counts: the loaded calls
+        got = {b: loaded.call(loaded.G, loaded.P, loaded.vgg, *x)
+               for b, x in batches.items()}
+        torch.cuda.synchronize()
+    paths["exported_int8"] = counts()
+    same = all(torch.equal(got[b], want[b]) for b in sizes)
+    calls = 2 if loaded.batch == "symbolic" else sum(
+        (b + max(loaded.batch) - 1) // max(loaded.batch) for b in sizes)
+    figures["c"] = {"export_s": export_s, "load_s": load_s, "bytes": nbytes,
+                    "batch": loaded.batch}
+    log(f"phase 10 (c) int8 artifact: export {export_s:.2f} s (batch "
+        f"{loaded.batch}), {nbytes} bytes, load {load_s:.2f} s; the graph "
+        f"calls aten._int_mm; loaded call against live int8 serving at B = "
+        f"{sizes}, deterministic cuDNN: bit for bit {same}; launches "
+        f"{paths['exported_int8']}  [{card}]")
+    check(same, "the int8 artifact must answer as live int8 serving")
+    check(paths["exported_int8"] == {"scan_stream": calls, "kbar_build": 0},
+          "the int8 artifact: one scan launch a graph call, no kbar")
+    del loaded, got, want
+    shutil.rmtree(art, ignore_errors=True)
+
+    # ---- (d) both pack modes, f32: serving, then training ----
+    figures["d"], paths["serving_packed"] = serve("(d) packed serving",
+                                                  pk_cfg)
+    gt, ref = image(), image()
+    pb, _ = TI.make_inference_fn(pk_cfg, dev)(*models, gt, small, ref)
+    ub, _ = TI.make_inference_fn(p9_cfg, dev)(*models, gt, small, ref)
+    d_pack = (pb - ub).abs().max().item()
+    log(f"phase 10 (d) packed fake_B against unpacked at phase 4's small "
+        f"hole: max|d|={d_pack:.3e} (limit {PACK_TOL})")
+    check(d_pack <= PACK_TOL, "packed fake_B against unpacked")
+    f32.close()
+    del f32, models, pb, ub
+    torch.cuda.empty_cache()
+
+    ptcfg = tcfg.replace(pack_small_cin=True, pack_out=True)
+    state = TI.create_state(ptcfg, torch.Generator().manual_seed(tcfg.seed),
+                            dev)
+    step = TI.make_train_step(ptcfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    TAC.launches = TAC.kbar_launches = 0    # counts: the packed steps
+    _, m = step(state, small_batch)
+    losses = {k: v.item() for k, v in m.items()}
+    d_step = max(abs(losses[k] - unpacked_losses[k])
+                 / max(abs(unpacked_losses[k]), 1e-12) for k in losses)
+    ms = []
+    for b in train_batches:
+        t0 = time.perf_counter()
+        step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    paths["train_packed"] = counts()
+    n_steps = 1 + len(train_batches)
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    figures["d"].update(step_ms=steady, peak=peak, d_step=d_step)
+    log(f"phase 10 (d) packed train step at B={ptcfg.batch_size}: first "
+        f"step at phase 4's small hole against phase 5's unpacked step: max "
+        f"relative loss difference {d_step:.3e} (limit {STEP_TOL}); "
+        f"{steady:.1f} ms a step (steps " + " / ".join(f"{x:.1f}" for x in ms)
+        + f" ms), peak allocated {peak / 2 ** 30:.2f} GiB ({peak} B), "
+        f"launches {paths['train_packed']}  [{card}]")
+    check(d_step <= STEP_TOL, "packed train step against unpacked")
+    check(paths["train_packed"] == {"scan_stream": n_steps,
+                                    "kbar_build": n_steps},
+          "packed steps: one scan and one kbar launch a step")
+    del state, step
+    torch.cuda.empty_cache()
+
+    rcfg = ptcfg.replace(remat=True, remat_depth=1)
+    state = TI.create_state(rcfg, torch.Generator().manual_seed(tcfg.seed),
+                            dev)
+    step = TI.make_train_step(rcfg, dev)
+    kbars, core = [], TA.attention_core_batched
+
+    def spy(*a, **kw):
+        out, kbar = core(*a, **kw)
+        kbars.append(kbar)
+        return out, kbar
+
+    TA.attention_core_batched = spy
+    TAC.launches = TAC.kbar_launches = 0    # counts: the packed remat step
+    try:
+        step(state, train_batches[0])
+    finally:
+        TA.attention_core_batched = core
+    torch.cuda.synchronize()
+    paths["train_packed_remat"] = counts()
+    same = len(kbars) == 2 and torch.equal(kbars[0], kbars[1])
+    log(f"phase 10 (d) packed step at remat depth 1: {len(kbars)} kbar "
+        f"builds, the recompute's equal to the forward's bit for bit: "
+        f"{same}; launches {paths['train_packed_remat']}")
+    check(same, "the packed recompute must build the forward's kbar")
+    check(paths["train_packed_remat"] == step_launches(rcfg),
+          "packed remat step launches")
+    del state, step, kbars
+    torch.cuda.empty_cache()
+    return {"paths": paths, "figures": figures}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1648,9 +2075,15 @@ def main() -> int:
                          p9_live)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 10: the conv knobs at full width, 256 px -------------------
+    t0 = time.perf_counter()
+    p10 = conv_knobs(dev, card, p9_cfg, TRAIN_STEPS, tcfg, small,
+                     small_batch, losses["cuda"], batches, phase6)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+
     # `launches` sums the main paths (serving, the train step, the trainer,
-    # evaluate, phase 8's bf16 / remat / grad_accum paths and phase 9's
-    # serving program); the
+    # evaluate, phase 8's bf16 / remat / grad_accum paths, phase 9's
+    # serving program and phase 10's int8 and packed paths); the
     # times are those at B=8, N=1024, the shapes a 256 px train step gives
     # both: `ms` a launch of 20 back to back, `single_launch_ms` the median
     # of single launches, each between its own pair of events.  `n4096`
@@ -1661,7 +2094,8 @@ def main() -> int:
                             "trainer": program_launches["trainer"][name],
                             "evaluate": program_launches["evaluate"][name],
                             **{path: n[name]
-                               for paths in (p8["paths"], p9)
+                               for paths in (p8["paths"], p9,
+                                             p10["paths"])
                                for path, n in paths.items()}}
     n4096 = lambda name: {
         f"B{b}": {k: t[name][k] for k in ("ms", "single_ms", "plain_ms",

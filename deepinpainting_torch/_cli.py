@@ -4,11 +4,13 @@ deepinpainting_tpu/_cli.py::train, evaluate):
     python -m deepinpainting_torch._cli train --dataroot D --maskroot M \
         --refroot R [--validroot V] [--device cpu] [--<any Config field> V]
     python -m deepinpainting_torch._cli evaluate --dataroot D --maskroot M \
-        --name N --which_epoch E [--save_dir S] [--device cpu]
+        --name N --which_epoch E [--save_dir S] [--quant int8] [--device cpu]
     python -m deepinpainting_torch._cli serve [--which_epoch E | \
-        --random_weights | --from_export DIR] [--max_batch 8] [--device cpu]
+        --random_weights | --from_export DIR] [--max_batch 8] \
+        [--quant int8] [--device cpu]
     python -m deepinpainting_torch._cli export --out DIR \
-        [--which_epoch E | --random_weights] [--batches 1,8] [--device cpu]
+        [--which_epoch E | --random_weights] [--batches 1,8] [--quant int8] \
+        [--device cpu]
 
 Each runs on the card unless given --device cpu.  This module imports no
 torch at module level: the data loader's spawned workers import it as
@@ -110,9 +112,10 @@ def evaluate(argv=None):
             args.faithful_known_replacement == "true"))
 
     mgr = CheckpointManager(cfg)   # restore-only: never writes config.json
-    state = mgr.restore(args.which_epoch,
-                        create_state(cfg, torch.Generator().manual_seed(0),
-                                     args.device), args.device)
+    # the state is a training one, which int8 (inference only) cannot build
+    template = create_state(cfg.replace(quant="none"),
+                            torch.Generator().manual_seed(0), args.device)
+    state = mgr.restore(args.which_epoch, template, args.device)
     ds = SelfRefDataset(args.dataroot, args.maskroot, cfg.fine_size)
     print(f"test images: {len(ds)}")
     return run_eval(cfg, state, ds, max_images=args.max_images,
@@ -149,7 +152,7 @@ def export(argv=None):
     ap.add_argument("--out", required=True, help="artifact directory")
     ap.add_argument("--quant", default="", choices=["", "none", "int8"],
                     help="override the checkpoint config's quant mode "
-                         "(int8 is not ported yet)")
+                         "(int8: dynamic int8 convs, ops/quant.py)")
     ap.add_argument("--batches", default="",
                     help="comma-separated batch sizes to export as a fixed "
                          "set, e.g. '1,8' (default: a symbolic batch "
@@ -203,7 +206,7 @@ def serve(argv=None):
                          "ported yet)")
     ap.add_argument("--quant", default="", choices=["", "none", "int8"],
                     help="override the checkpoint config's quant mode "
-                         "(int8 is not ported yet)")
+                         "(int8: dynamic int8 convs, ops/quant.py)")
     ap.add_argument("--from_export", default="",
                     help="serve an artifact directory (`export`) instead "
                          "of a checkpoint")

@@ -51,6 +51,11 @@ Differences from the JAX artifact:
   * export traces under no_grad with the weights as plain tensor inputs,
     so the attention takes its kbar-free primal: the graph calls the scan
     op and never the kbar op.
+
+The config's conv modes are traced in, as in JAX: an int8 config's graph
+quantises its eligible convs and multiplies with `aten._int_mm`, and the
+pack modes' rewrites are ordinary convs of the graph.  config.json
+records them, and load_serving serves the graph as it was traced.
 """
 
 from __future__ import annotations

@@ -28,6 +28,11 @@ Data flow, as the JAX package's:
                (models/remat.py); the step's results are those without it.
   grad_accum : k > 1 splits the batch into k microbatches
                (_make_accum_train_step).
+  conv modes : cfg.quant='int8' (inference only), pack_small_cin and
+               pack_out apply to every conv of the networks an entry point
+               runs, as the JAX package's conv_modes(cfg) applies them:
+               each entry point runs its body inside ops/convs.py's
+               conv_modes(cfg).
 
 The public functions take and return the JAX layout (NHWC images, [B,H,W]
 masks) so the two packages compare like with like; images go to NCHW once
@@ -52,7 +57,7 @@ from ..models.unet_ipsr import UnetGeneratorIPSR
 from ..models.vgg16 import Vgg16
 from ..ops import masks as M
 from ..ops.attention import check_impl
-from ..ops.convs import (INIT_TYPES, NORMS, InstanceNorm,
+from ..ops.convs import (INIT_TYPES, NORMS, InstanceNorm, conv_modes,
                          frozen_running_stats, init_weight_)
 from .state import TrainState, create_train_state
 
@@ -80,7 +85,7 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 def check_config(cfg: Config) -> int:
     """The JAX package's build_models checks, plus a refusal of every
-    option the port does not run yet.  Returns the U-Nets' num_downs."""
+    option the port does not run.  Returns the U-Nets' num_downs."""
     if cfg.which_model_netG != "unet_ipsr":
         raise NotImplementedError(cfg.which_model_netG)
     if cfg.which_model_netP != "unet_256":
@@ -100,13 +105,6 @@ def check_config(cfg: Config) -> int:
         raise NotImplementedError(
             f"quant mode [{cfg.quant}] is not implemented "
             "(only 'none' and 'int8' are supported)")
-    # Options the JAX package has and the port does not run yet.
-    for name, value, ok in (("quant", cfg.quant, "none"),
-                            ("pack_small_cin", cfg.pack_small_cin, False),
-                            ("pack_out", cfg.pack_out, False)):
-        if value != ok:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (port runs {ok!r})")
     if cfg.dtype not in COMPUTE_DTYPES:
         raise NotImplementedError(
             f"dtype={cfg.dtype!r} is not ported (port runs "
@@ -127,12 +125,12 @@ def check_config(cfg: Config) -> int:
 
 def check_train_config(cfg: Config) -> None:
     """check_config, plus the training options' checks."""
+    check_config(cfg)
     if cfg.quant != "none":
         # gradients through round() are zero: int8 is inference-only
         raise NotImplementedError(
             f"quant={cfg.quant!r} is inference-only; training runs full "
             "precision")
-    check_config(cfg)
     if cfg.gan_type not in ("lsgan", "wgan_gp", "vanilla"):
         raise ValueError(f"unknown gan_type {cfg.gan_type!r}")
 
@@ -323,6 +321,10 @@ def _inference_body(cfg: Config, dev: torch.device):
     dt = compute_dtype(cfg)
 
     def infer(G, P, vgg, gt, mask, ref):
+        with conv_modes(cfg):
+            return _infer(G, P, vgg, gt, mask, ref)
+
+    def _infer(G, P, vgg, gt, mask, ref):
         gt = normalize_image(_as_tensor(gt, dev)).permute(0, 3, 1, 2)
         ref = normalize_image(_as_tensor(ref, dev)).permute(0, 3, 1, 2)
         mask = resolve_mask(cfg, normalize_mask(_as_tensor(mask, dev)))
@@ -455,6 +457,11 @@ def make_train_step(cfg: Config, device: DeviceLike = None):
 
     def train_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
+        with conv_modes(cfg):
+            return _train_step(state, batch, generator)
+
+    def _train_step(state: TrainState, batch,
+                    generator: Optional[torch.Generator]):
         G, P, D, F, vgg = state.G, state.P, state.D, state.F, state.vgg
         for net in (G, P, D, F):
             net.train()
@@ -546,6 +553,11 @@ def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
 
     def train_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
+        with conv_modes(cfg):
+            return _train_step(state, batch, generator)
+
+    def _train_step(state: TrainState, batch,
+                    generator: Optional[torch.Generator]):
         G, P, D, F, vgg = state.G, state.P, state.D, state.F, state.vgg
         for net in (G, P, D, F):
             net.train()
@@ -655,8 +667,9 @@ def make_eval_step(cfg: Config, device: DeviceLike = None):
             mask = resolve_mask(cfg, normalize_mask(
                 _as_tensor(batch["mask"], dev)))
             _, flag = prepare_masks(cfg, mask)
-            fwd = two_stage_forward(G, P, gt, mask, vgg(ref).relu4_3, flag,
-                                    impl, dtype=dt)
+            with conv_modes(cfg):
+                fwd = two_stage_forward(G, P, gt, mask, vgg(ref).relu4_3,
+                                        flag, impl, dtype=dt)
         finally:
             G.train(modes[0])
             P.train(modes[1])
@@ -688,7 +701,9 @@ def make_coarse_fn(cfg: Config, device: DeviceLike = None):
     def coarse(P, gt, mask):
         gt = normalize_image(_as_tensor(gt, dev)).permute(0, 3, 1, 2)
         mask = resolve_mask(cfg, normalize_mask(_as_tensor(mask, dev)))
-        fake_P = P(M.fill_hole_with_mean(gt, mask).to(dt)).to(torch.float32)
+        with conv_modes(cfg):
+            fake_P = P(M.fill_hole_with_mean(gt, mask).to(dt)
+                       ).to(torch.float32)
         m = mask[:, None]
         composite = fake_P * m + gt * (1.0 - m)
         return fake_P.permute(0, 2, 3, 1), composite.permute(0, 2, 3, 1)

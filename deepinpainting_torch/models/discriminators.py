@@ -12,7 +12,9 @@ netF (counterpart of deepinpainting_tpu/models/discriminators.py), NCHW.
     middle one is followed by an InstanceNorm without affine parameters.
 
 Layer attribute names follow the JAX package's flax scope names (`conv0`,
-`norm1`, `head`), so the weight bridge resolves each key by its path.
+`norm1`, `head`), so the weight bridge resolves each key by its path.  The
+convs are ops/convs.py's, so the conv modes reach them as they reach the
+JAX package's TorchConv (pack_small_cin rewrites netD's 3-channel conv0).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.convs import leaky_relu, make_norm
+from ..ops.convs import Conv2d, leaky_relu, make_norm
 
 
 class NLayerDiscriminator(nn.Module):
@@ -34,16 +36,16 @@ class NLayerDiscriminator(nn.Module):
         use_bias = norm == "instance"
         self.n_layers = n_layers
         self.use_sigmoid = use_sigmoid
-        self.conv0 = nn.Conv2d(input_nc, ndf, 4, 2, 1)
+        self.conv0 = Conv2d(input_nc, ndf, 4, 2, 1)
         cin = ndf
         for n in range(1, n_layers + 1):
             cout = ndf * min(2 ** n, 8)
             stride = 2 if n < n_layers else 1
-            setattr(self, f"conv{n}", nn.Conv2d(cin, cout, 4, stride, 1,
-                                                bias=use_bias))
+            setattr(self, f"conv{n}", Conv2d(cin, cout, 4, stride, 1,
+                                             bias=use_bias))
             setattr(self, f"norm{n}", make_norm(norm, cout))
             cin = cout
-        self.head = nn.Conv2d(cin, 1, 4, 1, 1)
+        self.head = Conv2d(cin, 1, 4, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = leaky_relu(self.conv0(x), 0.2)
@@ -61,9 +63,9 @@ class PFDiscriminator(nn.Module):
 
     def __init__(self, in_channels: int = 256, width: int = 512):
         super().__init__()
-        self.conv0 = nn.Conv2d(in_channels, width, 4, 2, 1)
-        self.conv1 = nn.Conv2d(width, width, 4, 2, 1)
-        self.conv2 = nn.Conv2d(width, width, 4, 2, 1)
+        self.conv0 = Conv2d(in_channels, width, 4, 2, 1)
+        self.conv1 = Conv2d(width, width, 4, 2, 1)
+        self.conv2 = Conv2d(width, width, 4, 2, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # Three 4x4 s2 p1 convs need an 8x8 input to emit one patch; a

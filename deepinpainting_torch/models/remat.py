@@ -13,7 +13,11 @@ here by hand:
     not replay: the generator's state at the level's entry is set again for
     the recompute, and put back where the step left it afterwards;
   * a recomputed train-mode BatchNorm would move its running statistics a
-    second time: the recompute runs under frozen_running_stats.
+    second time: the recompute runs under frozen_running_stats;
+  * the conv modes (ops/convs.py) are held per thread, and autograd may
+    run the backward, and with it the recompute, in a thread of its own:
+    the modes in force when the level is called are entered again for the
+    recompute, which then takes the forward's conv paths.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.convs import frozen_running_stats
+from ..ops.convs import current_modes, frozen_running_stats, use_modes
 
 
 def mark_levels(outermost: nn.Module, remat: bool, depth: int) -> None:
@@ -43,6 +47,7 @@ def checkpoint_level(level: nn.Module, fn: Callable, x: torch.Tensor,
     `generator` is the dropout's (None: the device's default generator,
     which checkpoint itself replays)."""
     entry = None if generator is None else generator.get_state()
+    modes = current_modes()
     calls = 0
 
     def run(x):
@@ -50,12 +55,13 @@ def checkpoint_level(level: nn.Module, fn: Callable, x: torch.Tensor,
         calls += 1
         if calls == 1:
             return fn(x)
-        # the recompute: the same dropout draw, no running-statistics move
+        # the recompute: the same dropout draw and conv modes, no
+        # running-statistics move
         left = None if generator is None else generator.get_state()
         if generator is not None:
             generator.set_state(entry)
         try:
-            with frozen_running_stats(level):
+            with frozen_running_stats(level), use_modes(modes):
                 return fn(x)
         finally:
             if generator is not None:

@@ -20,17 +20,37 @@ in its input's dtype, as the JAX package's layers do.  Under bf16 a conv
 casts its weight to bf16 per call (its gradient reaches the f32 master
 weight through the cast), its output is rounded to bf16 and the bias is
 added in bf16; the norms keep their statistics in f32.
+
+Conv modes (Config.quant / pack_small_cin / pack_out), chosen per call as
+the JAX package's trace-time `conv_modes(cfg)` chooses them: an entry
+point runs its body inside `conv_modes(cfg)`, and every Conv2d /
+ConvTranspose2d routes in the JAX package's order, int8 (ops/quant.py),
+then pack_small_cin, then pack_out, then the direct conv.  The modes are
+held per thread and are no part of any module's state, so state_dicts do
+not change.  Autograd may run a backward, and so a checkpointed level's
+recompute, in another thread: models/remat.py captures the modes when the
+level is called and enters them again for the recompute.
+
+The pack rewrites are exact reassociations of the same sums (identical
+products, another order): small-Cin convs pack their taps into channels
+(`_conv2d_space_to_depth`, `_conv2d_tap_stack`), high-resolution k3s1
+convs and small-Cout deconvs pack 2-4 output pixels into channels
+(`_conv2d_hpack2`, `_deconv_dpack4`).  The gates are the JAX package's,
+with its constants (module attributes, so tests can lower them).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional
+import threading
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from . import quant
 
 INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
 NORMS = ("instance", "batch")
@@ -65,28 +85,209 @@ def _channels(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return v.to(dtype)[:, None, None]
 
 
+# ---- conv modes -------------------------------------------------------------
+
+class ConvModes(NamedTuple):
+    """Which conv rewrites are on (Config.quant == 'int8',
+    pack_small_cin, pack_out)."""
+    int8: bool = False
+    pack_small_cin: bool = False
+    pack_out: bool = False
+
+
+_MODES = threading.local()
+
+_PACK_CIN_MAX = 8
+_PACK_OUT_MIN_HW = 128     # direct convs below this size are not packed
+_PACK_OUT_MIN_CIN = 32     # tiny-Cin convs are pack_small_cin's regime
+_PACK_OUT_DECONV_MAX_COUT = 64
+
+
+def current_modes() -> ConvModes:
+    """The conv modes in force in this thread."""
+    return getattr(_MODES, "modes", ConvModes())
+
+
+@contextlib.contextmanager
+def use_modes(modes: ConvModes):
+    """Run the block's convs (in this thread) under `modes`."""
+    prev = current_modes()
+    _MODES.modes = modes
+    try:
+        yield
+    finally:
+        _MODES.modes = prev
+
+
+def conv_modes(cfg):
+    """Enter every conv mode a Config selects (the JAX package's
+    conv_modes)."""
+    return use_modes(ConvModes(cfg.quant == "int8", bool(cfg.pack_small_cin),
+                               bool(cfg.pack_out)))
+
+
+# ---- the pack rewrites (NCHW; weights in torch layout) ---------------------
+
+def _conv2d_space_to_depth(x, w, padding):
+    """k4 s2 conv as space-to-depth(2) + a k2 s1 conv: output row h reads
+    padded rows 2h..2h+3, the 2x2 blocks h and h+1, so with each block
+    packed into channels the window is 2x2 at stride 1 and the reduction
+    per tap is 4*Cin wide."""
+    n, c = x.shape[:2]
+    cout = w.shape[0]
+    xp = F.pad(x, (padding, padding, padding, padding))
+    h2, w2 = xp.shape[2] // 2, xp.shape[3] // 2
+    # channel (c, di, dj) of block (h2, w2)
+    x2 = xp.reshape(n, c, h2, 2, w2, 2).permute(0, 1, 3, 5, 2, 4)
+    x2 = x2.reshape(n, 4 * c, h2, w2)
+    # w[o, c, 2bi+di, 2bj+dj] -> k2[o, (c, di, dj), bi, bj]
+    k2 = w.reshape(cout, c, 2, 2, 2, 2).permute(0, 1, 3, 5, 2, 4)
+    return F.conv2d(x2, k2.reshape(cout, 4 * c, 2, 2))
+
+
+def _conv2d_tap_stack(x, w, padding):
+    """k x k s1 conv as kh*kw shifted tap planes + a 1x1 conv: the
+    reduction goes Cin -> kh*kw*Cin."""
+    cout, c, kh, kw = w.shape
+    xp = F.pad(x, (padding, padding, padding, padding))
+    h, wd = xp.shape[2] - kh + 1, xp.shape[3] - kw + 1
+    xs = torch.cat([xp[:, :, dh:dh + h, dw:dw + wd]
+                    for dh in range(kh) for dw in range(kw)], dim=1)
+    # channel order (dh, dw, c) on both sides
+    k1 = w.permute(0, 2, 3, 1).reshape(cout, kh * kw * c, 1, 1)
+    return F.conv2d(xs, k1)
+
+
+def _packed_small_cin(x, w, stride, padding, dilation):
+    """Route an eligible tiny-Cin conv to its packed rewrite, else None."""
+    _, cin, kh, kw = w.shape
+    if cin > _PACK_CIN_MAX or dilation != 1 or kh != kw or kh == 1:
+        return None
+    if stride == 1:
+        return _conv2d_tap_stack(x, w, padding)
+    if (stride == 2 and kh == 4 and (x.shape[2] + 2 * padding) % 2 == 0
+            and (x.shape[3] + 2 * padding) % 2 == 0):
+        return _conv2d_space_to_depth(x, w, padding)
+    return None
+
+
+def _conv2d_hpack2(x, w):
+    """k3 s1 p1 conv as a [4, 3] stride-(2, 1) conv packing output rows 2i
+    and 2i+1 into 2*Cout channels: output row r of the strided conv reads
+    padded rows 2r..2r+3; taps 0..2 of that window give row 2r, taps 1..3
+    row 2r+1 (4/3 the MACs, the extra ones on zeros)."""
+    co, c, _, kw = w.shape
+    z = w.new_zeros((co, c, 1, kw))
+    k2 = torch.cat([torch.cat([w, z], dim=2), torch.cat([z, w], dim=2)])
+    n, _, h, wd = x.shape
+    y = F.conv2d(F.pad(x, (1, 1, 1, 2)), k2, stride=(2, 1))
+    y = y.reshape(n, 2, co, h // 2, wd).permute(0, 2, 3, 1, 4)
+    return y.reshape(n, co, h, wd)
+
+
+def _packed_out_conv(x, w, stride, padding, dilation):
+    """Route an eligible high-resolution k3s1 conv to hpack2, else None."""
+    _, cin, kh, kw = w.shape
+    if (stride != 1 or dilation != 1 or kh != 3 or kw != 3 or padding != 1
+            or cin < _PACK_OUT_MIN_CIN or x.shape[2] < _PACK_OUT_MIN_HW
+            or x.shape[2] % 2 != 0):
+        return None
+    return _conv2d_hpack2(x, w)
+
+
+def _deconv_dpack4(x, wt):
+    """ConvTranspose2d k4 s2 p1 as a k2 s1 conv over pad(x, 1) with the
+    2x2 output phase packed into 4*Cout channels (the sub-pixel split; the
+    taps are regrouped, no MAC is added).  Per axis:
+      out[2m+1] = x[m]*K[2] + x[m+1]*K[0]
+      out[2m+2] = x[m]*K[3] + x[m+1]*K[1]
+    Both phases read x[m..m+1]; the conv emits m = -1..H-1 and the border
+    rows and columns outside the output are sliced off.  wt: [Cin, Cout,
+    4, 4]."""
+    c, co = wt.shape[:2]
+    t = {1: (2, 0), 2: (3, 1)}  # phase -> (tap at m, tap at m+1)
+    blocks = []
+    for rh in (1, 2):
+        for rw in (1, 2):
+            blocks.append(torch.stack([
+                torch.stack([wt[:, :, t[rh][u], t[rw][v]].t() for v in (0, 1)],
+                            dim=-1) for u in (0, 1)], dim=-2))  # [Co, C, 2, 2]
+    k2 = torch.cat(blocks)                                     # [4Co, C, 2, 2]
+    n, _, h, wd = x.shape
+    y = F.conv2d(F.pad(x, (1, 1, 1, 1)), k2)           # [n, 4Co, h+1, w+1]
+    y = y.reshape(n, 2, 2, co, h + 1, wd + 1).permute(0, 3, 4, 1, 5, 2)
+    y = y.reshape(n, co, 2 * h + 2, 2 * wd + 2)
+    return y[:, :, 1:2 * h + 1, 1:2 * wd + 1]
+
+
+def _packed_out_deconv(x, wt, stride, padding):
+    """Route an eligible deconv to its packed rewrite, else None: k4 s2 p1
+    with a narrow Cout -> dpack4; k3 s1 p1 is the k3s1p1 conv of the
+    flipped, transposed kernel -> hpack2."""
+    cin, cout, kh, kw = wt.shape
+    if (stride == 2 and padding == 1 and kh == 4 and kw == 4
+            and cout <= _PACK_OUT_DECONV_MAX_COUT
+            and cin >= _PACK_OUT_MIN_CIN
+            and 2 * x.shape[2] >= _PACK_OUT_MIN_HW):
+        return _deconv_dpack4(x, wt)
+    if (stride == 1 and padding == 1 and kh == 3 and kw == 3
+            and cin >= _PACK_OUT_MIN_CIN and x.shape[2] >= _PACK_OUT_MIN_HW
+            and x.shape[2] % 2 == 0):
+        return _conv2d_hpack2(x, wt.flip(2, 3).transpose(0, 1))
+    return None
+
+
+def _with_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return y if bias is None else y + _channels(bias, y.dtype)
+
+
 class Conv2d(nn.Conv2d):
     """nn.Conv2d that computes in its input's dtype (see the module
-    docstring); on an f32 input it is nn.Conv2d unchanged."""
+    docstring) under the conv modes in force; on an f32 input with no mode
+    it is nn.Conv2d unchanged."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        modes = current_modes()
+        w = self.weight if x.dtype == self.weight.dtype \
+            else self.weight.to(x.dtype)
+        args = (self.stride[0], self.padding[0], self.dilation[0])
+        if modes.int8 and quant.eligible(w.shape[1], w.shape[0]):
+            return quant.conv2d_int8(x, w, self.bias, *args)
+        if modes.pack_small_cin:
+            y = _packed_small_cin(x, w, *args)
+            if y is not None:
+                return _with_bias(y, self.bias)
+        if modes.pack_out:
+            y = _packed_out_conv(x, w, *args)
+            if y is not None:
+                return _with_bias(y, self.bias)
         if x.dtype == self.weight.dtype:
             return super().forward(x)
-        y = self._conv_forward(x, self.weight.to(x.dtype), None)
-        return y if self.bias is None else y + _channels(self.bias, x.dtype)
+        return _with_bias(self._conv_forward(x, w, None), self.bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """nn.ConvTranspose2d (output_padding 0) that computes in its input's
-    dtype, as Conv2d does."""
+    dtype under the conv modes in force, as Conv2d does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        modes = current_modes()
+        w = self.weight if x.dtype == self.weight.dtype \
+            else self.weight.to(x.dtype)
+        if modes.int8 and quant.eligible(w.shape[0], w.shape[1]):
+            return quant.conv_transpose2d_int8(x, w, self.bias,
+                                               self.stride[0],
+                                               self.padding[0])
+        if modes.pack_out:
+            y = _packed_out_deconv(x, w, self.stride[0], self.padding[0])
+            if y is not None:
+                return _with_bias(y, self.bias)
         if x.dtype == self.weight.dtype:
             return super().forward(x)
-        y = F.conv_transpose2d(x, self.weight.to(x.dtype), None, self.stride,
-                               self.padding, self.output_padding,
-                               self.groups, self.dilation)
-        return y if self.bias is None else y + _channels(self.bias, x.dtype)
+        y = F.conv_transpose2d(x, w, None, self.stride, self.padding,
+                               self.output_padding, self.groups,
+                               self.dilation)
+        return _with_bias(y, self.bias)
 
 
 class BatchNorm(nn.BatchNorm2d):

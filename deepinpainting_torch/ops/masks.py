@@ -78,3 +78,52 @@ def fill_hole_with_mean(image: torch.Tensor, mask: torch.Tensor
 def zero_hole(image: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Zero out the hole region.  image [..., C, H, W]; mask [..., H, W]."""
     return image * (1.0 - mask.unsqueeze(-3))
+
+
+def draw_strokes(generator: torch.Generator, num_strokes: int = 8):
+    """The random draws of random_stroke_mask, from `generator` (on its
+    device), in the JAX package's ranges: starts [S, 2] in [0.1, 0.9],
+    deltas [S, 2] in [-1, 1], lengths [S, 1] in [0.2, 1], all f32.  torch
+    cannot draw jax.random's numbers, so only these ranges are shared."""
+    def uniform(shape, lo, hi):
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        return lo + (hi - lo) * u
+    return (uniform((num_strokes, 2), 0.1, 0.9),
+            uniform((num_strokes, 2), -1.0, 1.0),
+            uniform((num_strokes, 1), 0.2, 1.0))
+
+
+def render_strokes(starts: torch.Tensor, deltas: torch.Tensor,
+                   lengths: torch.Tensor, fine_size: int, max_len: int = 48,
+                   thickness: int = 8, device=None) -> torch.Tensor:
+    """Thick line segments on a [fine_size, fine_size] grid: each stroke
+    runs from its start along its normalised delta for length * max_len
+    pixels (the end clipped to the image), and a pixel is a hole where its
+    distance to the nearest segment is at most thickness / 2 pixels, all in
+    [0, 1] image coordinates on a linspace grid, as the JAX package renders
+    them.  float32 [fine_size, fine_size], 1 = hole."""
+    starts, deltas, lengths = (t.to(device=device, dtype=torch.float32)
+                               for t in (starts, deltas, lengths))
+    deltas = deltas / (deltas.square().sum(-1, keepdim=True).sqrt() + 1e-8)
+    ends = torch.clamp(starts + deltas * lengths * (max_len / fine_size),
+                       0.0, 1.0)
+    yy = torch.arange(fine_size, dtype=torch.float32,
+                      device=starts.device) / (fine_size - 1)
+    grid = torch.stack(torch.meshgrid(yy, yy, indexing="ij"), dim=-1)
+    p0, d = starts[:, None, None, :], (ends - starts)[:, None, None, :]
+    rel = grid - p0                                        # [S, H, W, 2]
+    denom = (d * d).sum(-1) + 1e-12
+    t = torch.clamp((rel * d).sum(-1) / denom, 0.0, 1.0)
+    off = grid - (p0 + t[..., None] * d)
+    dists = off.square().sum(-1).sqrt()
+    radius = thickness / (2.0 * fine_size)
+    return (dists.amin(dim=0) <= radius).to(torch.float32)
+
+
+def random_stroke_mask(generator: torch.Generator, fine_size: int,
+                       num_strokes: int = 8, max_len: int = 48,
+                       thickness: int = 8) -> torch.Tensor:
+    """Free-form stroke mask on `generator`'s device: render_strokes of
+    draw_strokes.  float32 [fine_size, fine_size], 1 = hole."""
+    return render_strokes(*draw_strokes(generator, num_strokes), fine_size,
+                          max_len, thickness, generator.device)

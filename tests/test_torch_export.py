@@ -228,10 +228,11 @@ def test_cli_from_export_refusals(extra, capsys):
     assert "--from_export" in capsys.readouterr().err
 
 
-def test_cli_export_of_a_checkpoint(weights, tmp_path):
+def test_cli_export_of_a_checkpoint(weights, tmp_path, monkeypatch):
     """`_cli export` restores epoch 3 of a port checkpoint (its
     config.json) and exports it; the artifact answers as a session of the
-    restored networks.  int8 and sp are refused by name."""
+    restored networks.  `--quant int8` exports and serves the int8 path;
+    sp is refused by name."""
     _, tcfg, _, _, _ = weights
     ckpt = str(tmp_path / "ck")
     cfg = tcfg.replace(checkpoints_dir=ckpt, name="run", is_train=True)
@@ -245,10 +246,28 @@ def test_cli_export_of_a_checkpoint(weights, tmp_path):
     img, mask, ref = _requests(1, seed=60)
     np.testing.assert_array_equal(sess.run(img, mask, ref),
                                   live.run(img, mask, ref))
-    with pytest.raises(NotImplementedError, match="quant"):
-        _cli.export([*base, "--quant", "int8", "--random_weights",
-                     "--out", str(tmp_path / "q")])
-    with pytest.raises(NotImplementedError, match="quant"):
-        _cli.serve([*base, "--quant", "int8", "--random_weights"])
+    q_out = str(tmp_path / "q")
+    _cli.export([*base, "--quant", "int8", "--which_epoch", "3", "--out",
+                 q_out])
+    q_sess = InferenceSession.from_export(q_out, device="cpu")
+    q_live = InferenceSession(cfg.replace(quant="int8"), 3, device="cpu")
+    assert q_sess.cfg.quant == "int8"
+    np.testing.assert_array_equal(q_sess.run(img, mask, ref),
+                                  q_live.run(img, mask, ref))
+    # `serve --quant int8` builds an int8 session (its server not started)
+    served = {}
+
+    class _Server:
+        def serve_forever(self):
+            served["ran"] = True
+
+    def make_server(host, port, app, server_class=None):
+        served["app"] = app
+        return _Server()
+
+    import wsgiref.simple_server
+    monkeypatch.setattr(wsgiref.simple_server, "make_server", make_server)
+    _cli.serve([*base, "--quant", "int8", "--random_weights"])
+    assert served["ran"] and served["app"].session.cfg.quant == "int8"
     with pytest.raises(NotImplementedError, match="sp"):
         _cli.serve([*base, "--sp", "--random_weights"])

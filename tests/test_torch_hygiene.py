@@ -137,8 +137,7 @@ def test_cuda_device_turns_tf32_off(monkeypatch):
 
 def test_unported_options_are_refused():
     for kw in (dict(dtype="float16"),
-               dict(quant="int8"), dict(pack_out=True),
-               dict(pack_small_cin=True), dict(norm="group"),
+               dict(quant="int4"), dict(norm="group"),
                dict(init_type="uniform"), dict(which_model_netG="unet_256")):
         with pytest.raises(NotImplementedError):
             TI.build_models(TINY.replace(**kw))
@@ -148,10 +147,10 @@ def test_unported_options_are_refused():
                dict(attention_impl="xla")):
         with pytest.raises(ValueError):
             TI.build_models(TINY.replace(**kw))
-    # options left for later, each refused by its name
+    # options training does not run, each refused by its name (int8 is
+    # inference only, as in the JAX package)
     gen = torch.Generator().manual_seed(0)
-    for kw in (dict(pack_small_cin=True), dict(pack_out=True),
-               dict(dtype="float16"), dict(quant="int8")):
+    for kw in (dict(dtype="float16"), dict(quant="int8")):
         name = next(iter(kw))
         with pytest.raises(NotImplementedError, match=name):
             TI.make_train_step(TINY.replace(**kw), "cpu")
@@ -159,10 +158,16 @@ def test_unported_options_are_refused():
             TI.create_state(TINY.replace(**kw), gen, "cpu")
     with pytest.raises(ValueError, match="gan_type"):
         TI.make_train_step(TINY.replace(gan_type="hinge"), "cpu")
-    # norm='batch', the bf16 compute dtype, remat and grad_accum are
-    # ported: they build; debug_nan is the trainer's guard, and the step
-    # builds with it
+    # norm='batch', the bf16 compute dtype, remat, grad_accum and the
+    # conv modes are ported: they build (int8 for inference); debug_nan is
+    # the trainer's guard, and the step builds with it
     TI.build_models(TINY.replace(norm="batch"))
+    TI.build_models(TINY.replace(quant="int8"))
+    TI.build_discriminators(TINY.replace(quant="int8"))
+    packed = TINY.replace(pack_small_cin=True, pack_out=True)
+    TI.build_models(packed)
+    TI.make_train_step(packed, "cpu")
+    TI.create_state(packed, gen, "cpu")
     ported = TINY.replace(dtype="bfloat16", remat=True, remat_depth=0,
                           grad_accum=2, batch_size=2)
     TI.build_models(ported)

@@ -343,3 +343,58 @@ def test_exported_serving_on_card(cuda, tmp_path, monkeypatch):
         assert torch.equal(got, live(*models, img, mask, img))
     with pytest.raises(ValueError, match="'cuda'"):
         EM.load_serving(str(tmp_path), "cpu")
+
+
+@pytest.mark.parametrize("geometry", [
+    ("conv", 4, 2, 1, 1, 1, 32, 48, 8),     # 16 output rows: M padded
+    ("conv", 4, 2, 3, 2, 8, 64, 20, 32),    # dilated, Cout 20
+    ("conv", 3, 1, 1, 1, 2, 64, 64, 64),
+    ("deconv", 4, 2, 1, 1, 1, 512, 512, 1),     # the 1x1 innermost level
+    ("deconv", 3, 1, 1, 1, 2, 128, 64, 32)])
+def test_int8_convs_on_card_match_cpu(cuda, geometry):
+    """torch._int_mm on the card (cuBLASLt, with its M > 16 and multiple-
+    of-8 K and N rules met by the padding) gives the CPU's int32 sums and
+    its f64 plain version's, and the whole int8 conv equals the CPU's bit
+    for bit (the quantisation is IEEE division and round-half-even on
+    both)."""
+    from deepinpainting_torch.ops import quant as TQ
+    kind, k, s, p, d, b, cin, cout, h = geometry
+    rng = np.random.default_rng(cin + h)
+    x = torch.from_numpy(rng.normal(0, 0.5, (b, cin, h, h)).astype(np.float32))
+    shape = (cout, cin, k, k) if kind == "conv" else (cin, cout, k, k)
+    w = torch.from_numpy(rng.normal(0, 0.02, shape).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.01, cout).astype(np.float32))
+    if kind == "conv":
+        conv = lambda x, w, b: TQ.conv2d_int8(x, w, b, s, p, d)
+        int32 = lambda x, w: TQ.conv2d_int32(x, w, s, p, d)
+        plain = lambda x, w: TQ.conv2d_int32_reference(x, w, s, p, d)
+    else:
+        conv = lambda x, w, b: TQ.conv_transpose2d_int8(x, w, b, s, p)
+        int32 = lambda x, w: TQ.conv_transpose2d_int32(x, w, s, p)
+        plain = lambda x, w: TQ.conv_transpose2d_int32_reference(x, w, s, p)
+    xq, _ = TQ.quantize_activation(x)
+    wq, _ = TQ.quantize_weight(w, transposed=kind == "deconv")
+    got = int32(xq.to(cuda), wq.to(cuda))
+    assert torch.equal(got.cpu(), int32(xq, wq))
+    assert torch.equal(got, plain(xq.to(cuda), wq.to(cuda)))
+    assert torch.equal(conv(x.to(cuda), w.to(cuda), bias.to(cuda)).cpu(),
+                       conv(x, w, bias))
+
+
+@pytest.mark.parametrize("knobs", [dict(quant="int8"),
+                                   dict(pack_small_cin=True, pack_out=True)])
+def test_tiny_conv_knobs_on_card_match_cpu(cuda, knobs):
+    """int8 and both pack modes through the whole two-stage forward at a
+    small config: card against CPU, as test_tiny_serving_on_card_matches_
+    cpu holds the default path."""
+    cfg = Config(fine_size=64, ngf=8, vgg_width_scale=1 / 8, **knobs)
+    cpu = TI.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = TI.init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    rng = np.random.default_rng(1)
+    gt = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    ref = rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    mask = np.zeros((2, 64, 64), np.uint8)
+    mask[:, 20:40, 24:40] = 1
+    got, _ = TI.make_inference_fn(cfg, cuda)(*gpu, gt, mask, ref)
+    want, _ = TI.make_inference_fn(cfg, "cpu")(*cpu, gt, mask, ref)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-3)

@@ -412,10 +412,13 @@ def test_training_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(pack_small_cin=True), dict(dtype="float16"),
+    dict(quant="int4"), dict(dtype="float16"),
     dict(dtype="float64"), dict(quant="int8"),
-    dict(pack_out=True)])
+    dict(norm="group")])
 def test_options_left_for_later_are_refused_by_name(kw):
+    """What the train step does not run is refused by name: int8 is
+    inference only (as in the JAX package), the rest is not implemented.
+    The pack modes train (tests/test_torch_pack.py)."""
     _, tcfg = configs(**dict(FIELDS, **kw))
     name = next(iter(kw))
     for make in (lambda: TI.make_train_step(tcfg, "cpu"),
