@@ -64,7 +64,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      artifact bit for bit with live int8 serving at B=1 and B=8; (d) both
      pack modes: serving, fake_B against unpacked, one train step against
      phase 5's unpacked step, ms a step and peak memory, and a remat step
-     whose recompute builds the forward's kbar bit for bit.
+     whose recompute builds the forward's kbar bit for bit;
+ 11. data parallelism (parallel/mesh.py) at 256 px, full width, TF32 off,
+     each part in child processes: (a) two gloo ranks sharing the card
+     take one step at global batch 8 (4 rows a rank) at phase 4's small
+     hole, f32 instance norm, norm='batch' and grad_accum=2, against the
+     one-process step on the same batch (losses, G's parameters, running
+     statistics, each rank's launches); (b) one rank over NCCL through
+     torch.distributed.run and `_cli train --multihost`, one epoch of
+     phase 7's data, the step's time against phase 5's and its NCCL time;
+     (c) a two-rank gloo Trainer.fit of 2 epochs of 3 steps: one
+     checkpoint write, restored bit for bit on both ranks, the same
+     validation losses on both, a resume.  The two-rank times share one
+     card: they are no scaling figure.
 Three lines end the output, each on its own: a JSON object with a `kernels`
 list, the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -191,9 +203,10 @@ def kbar_bound(bsz: int, n: int, ind_bytes: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def profile_calls(label: str, calls, card: str) -> None:
+def profile_calls(label: str, calls, card: str) -> dict:
     """Device time by kernel class over `calls` (a list of thunks), with
-    torch.profiler, and the device's busy share of the host wall time."""
+    torch.profiler, and the device's busy share of the host wall time.
+    Returns the ms a call of each class."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -203,6 +216,7 @@ def profile_calls(label: str, calls, card: str) -> None:
                                 "winograd", "fft", "wgrad", "dgrad")),
                ("matmul", ("gemm", "gemv")),
                ("optimiser", ("multi_tensor", "adam")),
+               ("collective (NCCL)", ("nccl",)),
                ("copy/fill", ("memcpy", "memset")))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -229,13 +243,14 @@ def profile_calls(label: str, calls, card: str) -> None:
     n = len(calls)
     if total <= 0:
         log(f"profile of {label}: the profiler recorded no device time")
-        return
+        return {}
     log(f"profile of {n} {label}: device busy {total / wall_us:.1%} of "
         f"wall, {total / n / 1e3:.3f} ms device time each  [{card}]")
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
         log(f"  {cls:18s} {us / n / 1e3:8.3f} ms each  {us / total:6.1%}")
     for us, count, name in sorted(top, reverse=True)[:8]:
         log(f"  top {us / n / 1e3:8.3f} ms each x{count / n:g}: {name}")
+    return {cls: us / n / 1e3 for cls, us in by_class.items()}
 
 
 def write_synthetic_data(root: str, s: int, center, strokes, small) -> dict:
@@ -1502,6 +1517,485 @@ def conv_knobs(dev, card: str, p9_cfg, epoch: int, tcfg, small,
     return {"paths": paths, "figures": figures}
 
 
+# ---- phase 11: data parallelism (parallel/mesh.py) ------------------------
+
+P11_WORLD = 2          # (a), (c): gloo ranks sharing the one card
+DP_AGREE = 0.995       # (a): share of G's parameters within rtol 1e-3 /
+                       # atol 1e-5 after the step (JAX's rule: Adam's first
+                       # update is +-lr, so near-zero gradients flip), or
+                       # where the batch's chaos is wider, twice the share
+                       # the one-process step loses against itself when G's
+                       # first weight moves by DP_NUDGE
+BN_TOL = 1e-4          # (a): running statistics, relative to each tensor's
+                       # largest entry, or ENVELOPE_K x the same nudge's
+DP_NUDGE = 1e-7        # (a): the chaos envelope's relative perturbation
+CHILD_TIMEOUT_S = 300
+
+
+def flat_params(net):
+    """A network's parameters as one host f32 vector."""
+    import torch
+    return torch.cat([p.detach().reshape(-1).cpu() for p in net.parameters()])
+
+
+def running_stats(state) -> dict:
+    """The BatchNorm running statistics of G, P and D, on the host."""
+    return {f"{n}.{k}": v.detach().cpu().clone()
+            for n in ("G", "P", "D")
+            for k, v in getattr(state, n).state_dict().items()
+            if "running_" in k}
+
+
+def run_children(target, args_list, label: str) -> None:
+    """One spawned process per argument tuple; fails unless every one exits
+    0 within CHILD_TIMEOUT_S.  A child that fails ends the others (a rank
+    left alone would wait on a collective)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=a) for a in args_list]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    try:
+        while any(p.is_alive() for p in procs):
+            if (time.monotonic() > deadline
+                    or any(p.exitcode not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * len(procs), f"{label}: child exit codes {codes}")
+
+
+def gloo_rank(rank: int, url: str):
+    """Join phase 11's two-rank gloo group on the one card (cuda:0 for both
+    ranks; gloo takes CUDA tensors for all_reduce and broadcast) with TF32
+    off and cuDNN deterministic.  Returns (device, group)."""
+    import torch
+    from deepinpainting_torch.parallel import mesh
+    torch.backends.cudnn.deterministic = True
+    dev = mesh.init_distributed("cuda", "gloo", url, P11_WORLD, rank)
+    return dev, mesh.default_group()
+
+
+def dp_step_rank(rank: int, url: str, root: str, labels) -> None:
+    """Phase 11 (a), one of two gloo ranks sharing the card: for each
+    configuration, a fresh full-width state from seed 0 replicated from
+    rank 0, one data-parallel step on the rank's rows of the global batch,
+    held against the parent's one-process step on the whole batch; the f32
+    instance configuration then takes a second step, for its time alone.
+    Writes rank{r}.json."""
+    import torch
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.parallel import mesh
+    dev, group = gloo_rank(rank, url)
+    try:
+        with np.load(os.path.join(root, "batch.npz")) as f:
+            batch = dict(f)
+        out = {}
+        for label in labels:
+            ref = torch.load(os.path.join(root, f"{label}.pt"),
+                             weights_only=False)
+            cfg = ref["cfg"]
+            state = mesh.replicate_state(TI.create_state(
+                cfg, torch.Generator().manual_seed(cfg.seed), dev), group)
+            step = mesh.make_dp_train_step(cfg, dev, group)
+            local = mesh.shard_batch(batch, rank, P11_WORLD, cfg.grad_accum)
+            TAC.launches = TAC.kbar_launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = step(state, local)
+            torch.cuda.synchronize()
+            r = {"first_ms": (time.perf_counter() - t0) * 1e3,
+                 "rows": int(local["image"].shape[0]),
+                 "launches": {"scan_stream": TAC.launches,
+                              "kbar_build": TAC.kbar_launches}}
+            losses = {k: v.item() for k, v in metrics.items()}
+            r["loss_rel"] = max(abs(losses[k] - ref["losses"][k])
+                                / max(abs(ref["losses"][k]), 1e-12)
+                                for k in losses)
+            r["agree"] = float(np.isclose(
+                flat_params(state.G).numpy(), ref["G"].numpy(), rtol=1e-3,
+                atol=1e-5).mean())
+            r["bn_rel"] = max((float((v - ref["bn"][k]).abs().max()
+                                     / ref["bn"][k].abs().max().clamp(
+                                         min=1e-12))
+                               for k, v in running_stats(state).items()),
+                              default=0.0)
+            r["bn_tensors"] = len(ref["bn"])
+            if label == labels[0]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, local)
+                torch.cuda.synchronize()
+                r["second_ms"] = (time.perf_counter() - t0) * 1e3
+                r["launches_timed"] = {"scan_stream": TAC.launches,
+                                       "kbar_build": TAC.kbar_launches}
+            out[label] = r
+            del state, step
+            torch.cuda.empty_cache()
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp_fit_rank(rank: int, url: str, root: str, cfg, dirs: dict) -> None:
+    """Phase 11 (c), one of two gloo ranks sharing the card: Trainer.fit of
+    `cfg`, the checkpoint restored into a fresh state and held against the
+    rank's trained state bit for bit, then a resume of one more epoch.
+    Writes fit{r}.json: the checkpoint writes this rank made, its
+    validation losses, the restore's verdict, the epochs run, the steps and
+    the kernels' launches."""
+    import torch
+    from deepinpainting_torch.data import InpaintDataset
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.engine.state import NETWORKS, TRAINED
+    from deepinpainting_torch.engine.trainer import Trainer
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    dev, _ = gloo_rank(rank, url)
+    try:
+        s = cfg.fine_size
+        train_ds = InpaintDataset(dirs["img"], dirs["mask"], dirs["ref"], s,
+                                  seed=cfg.seed)
+        valid_ds = InpaintDataset(dirs["val"], dirs["mask"], dirs["ref"], s,
+                                  seed=cfg.seed + 1)
+        out = {"writes": 0, "valid": [], "epochs": []}
+
+        def watched(tr):
+            write, validate = tr.ckpt._write, tr.validate
+            epoch = tr.train_epoch
+
+            def counted_write(*a):
+                out["writes"] += 1
+                return write(*a)
+
+            def recorded_validate(state):
+                out["valid"].append(validate(state))
+                return out["valid"][-1]
+
+            def recorded_epoch(state, e, total):
+                out["epochs"].append(e)
+                return epoch(state, e, total)
+
+            tr.ckpt._write, tr.validate = counted_write, recorded_validate
+            tr.train_epoch = recorded_epoch
+            return tr
+
+        TAC.launches = TAC.kbar_launches = 0
+        t0 = time.perf_counter()
+        tr = watched(Trainer(cfg, train_ds, valid_ds, device=dev))
+        state = tr.fit()
+        torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        out["steps"] = state.step
+        fresh = TI.create_state(cfg, torch.Generator().manual_seed(99), dev)
+        tr.ckpt.restore(cfg.niter, fresh, dev)
+        same = fresh.step == state.step
+        for n in NETWORKS:
+            a, b = getattr(state, n).state_dict(), getattr(fresh, n
+                                                          ).state_dict()
+            same &= set(a) == set(b) and all(torch.equal(a[k], b[k])
+                                             for k in a)
+        for n in TRAINED:
+            oa, ob = getattr(state, f"opt_{n}"), getattr(fresh, f"opt_{n}")
+            for p, q in zip(getattr(state, n).parameters(),
+                            getattr(fresh, n).parameters()):
+                same &= all(torch.equal(oa.state[p][k], ob.state[q][k])
+                            for k in ("exp_avg", "exp_avg_sq", "step"))
+        out["restored_bit_for_bit"] = bool(same)
+        del fresh, state
+        cfg3 = cfg.replace(continue_train=True, which_epoch="latest",
+                           niter=cfg.niter + 1)
+        state = watched(Trainer(cfg3, train_ds, valid_ds, device=dev)).fit()
+        torch.cuda.synchronize()
+        out["resumed_steps"] = state.step
+        out["launches"] = {"scan_stream": TAC.launches,
+                           "kbar_build": TAC.kbar_launches}
+        train_ds.close()
+        valid_ds.close()
+        with open(os.path.join(root, f"fit{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dp_cli_child(result_path: str, argv) -> int:
+    """Phase 11 (b), run by torch.distributed.run: `_cli train --multihost`
+    with `argv`, the trainer's steps timed between synchronises, then two
+    more steps under the profiler (outside the counts).  cuDNN keeps its
+    defaults, as phase 5 timed the plain step.  Writes `result_path`."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepinpainting_torch import _cli
+    from deepinpainting_torch.engine import trainer as T
+    from deepinpainting_torch.engine.state import TRAINED
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    out = {"step_ms": []}
+
+    class TimedTrainer(T.Trainer):
+        def train_epoch(self, state, epoch, total_steps):
+            inner = self.train_step
+
+            def timed(state, batch, generator):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = inner(state, batch, generator)
+                torch.cuda.synchronize()
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                self.last_batch = batch
+                return res
+
+            self.train_step = timed
+            try:
+                return super().train_epoch(state, epoch, total_steps)
+            finally:
+                self.train_step = inner
+
+        def fit(self, *a, **k):
+            TAC.launches = TAC.kbar_launches = 0
+            state = super().fit(*a, **k)
+            out["launches"] = {"scan_stream": TAC.launches,
+                               "kbar_build": TAC.kbar_launches}
+            world = torch.distributed.get_world_size(self.group)
+            out["group"] = [torch.distributed.get_backend(self.group), world]
+            out["grad_bytes"] = 4 * sum(
+                p.numel() for n in TRAINED
+                for p in getattr(state, n).parameters())
+            out["profile"] = profile_calls(
+                f"DP steps, nccl, world size {world}, B="
+                f"{self.cfg.batch_size}",
+                [lambda: self.train_step(state, self.last_batch,
+                                         self.generator)] * 2, card_line())
+            with open(os.path.join(self.out_dir, "metrics.csv")) as f:
+                out["metric_rows"] = [
+                    {k: float(v) for k, v in row.items()}
+                    for row in csv.DictReader(f)]
+            return state
+
+    T.Trainer = TimedTrainer
+    _cli.train(argv)
+    with open(result_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def data_parallel(dev, card: str, small_batch: dict, plain_ms: float,
+                  center, strokes, small) -> dict:
+    """Phase 11: the data-parallel step and training program at 256 px,
+    full width, weights from seed 0, TF32 off.  (a) two gloo ranks sharing
+    the card, one step at global B=8 against the one-process step on the
+    same batch (f32 instance norm, norm='batch', grad_accum=2); (b) one
+    rank over NCCL through torch.distributed.run and `_cli train
+    --multihost`, one epoch; (c) a two-rank gloo Trainer.fit with its
+    checkpoint, restore and resume.  The two-rank times share one card and
+    move gradients through the host: they are no scaling figure.  Returns
+    the kernels' launches by path."""
+    import torch
+    from deepinpainting_torch.config import Config
+    from deepinpainting_torch.engine import inpaint as TI
+    os.makedirs(BUILD, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_phase11_", dir=BUILD)
+    paths = {}
+    try:
+        # -- (a) the step: references in this process first --
+        cfgs = {"f32_instance": Config(batch_size=TRAIN_BATCH),
+                "norm_batch": Config(batch_size=TRAIN_BATCH, norm="batch"),
+                "grad_accum_2": Config(batch_size=TRAIN_BATCH, grad_accum=2)}
+        np.savez(os.path.join(root, "batch.npz"), **small_batch)
+        envelope = {}
+        with deterministic_cudnn():
+            for label, cfg in cfgs.items():
+                # the one-process step, then the same step with G's first
+                # weight DP_NUDGE larger: how far the batch's chaos alone
+                # moves G's parameters and the running statistics
+                ref = None
+                for nudge in (0.0, DP_NUDGE):
+                    state = TI.create_state(
+                        cfg, torch.Generator().manual_seed(cfg.seed), dev)
+                    with torch.no_grad():
+                        next(state.G.parameters()).mul_(1.0 + nudge)
+                    _, m = TI.make_train_step(cfg, dev)(state, small_batch)
+                    got = {"cfg": cfg, "G": flat_params(state.G),
+                           "losses": {k: v.item() for k, v in m.items()},
+                           "bn": running_stats(state)}
+                    if ref is None:
+                        ref = got
+                        torch.save(ref, os.path.join(root, f"{label}.pt"))
+                    else:
+                        envelope[label] = {
+                            "agree": float(np.isclose(
+                                got["G"].numpy(), ref["G"].numpy(),
+                                rtol=1e-3, atol=1e-5).mean()),
+                            "bn_rel": max((float(
+                                (v - ref["bn"][k]).abs().max()
+                                / ref["bn"][k].abs().max().clamp(min=1e-12))
+                                for k, v in got["bn"].items()), default=0.0)}
+                    del state
+                    torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        run_children(dp_step_rank, [(r, f"file://{root}/rendezvous_a", root,
+                                     list(cfgs)) for r in range(P11_WORLD)],
+                     "phase 11 (a)")
+        a_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(P11_WORLD):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        verdicts = []       # every figure is logged before any check fails
+        for label, cfg in cfgs.items():
+            want = step_launches(cfg)
+            env = envelope[label]
+            agree_min = 1.0 - max(1.0 - DP_AGREE, 2.0 * (1.0 - env["agree"]))
+            bn_max = max(BN_TOL, ENVELOPE_K * env["bn_rel"])
+            log(f"phase 11 (a) {label}: the one-process step against itself "
+                f"with G's first weight {DP_NUDGE:g} larger: G parameters "
+                f"agreeing {env['agree']:.4%}, running statistics max rel "
+                f"{env['bn_rel']:.3e}")
+            for r, res in enumerate(ranks):
+                x = res[label]
+                log(f"phase 11 (a) {label}, gloo rank {r} of {P11_WORLD} "
+                    f"sharing one card, {x['rows']} of {TRAIN_BATCH} rows: "
+                    f"losses vs the one-process step max rel "
+                    f"{x['loss_rel']:.3e} (limit {STEP_TOL}), G parameters "
+                    f"agreeing {x['agree']:.4%} (limit {agree_min:.4%}), "
+                    f"running statistics max rel {x['bn_rel']:.3e} over "
+                    f"{x['bn_tensors']} tensors (limit {bn_max:.3e}), "
+                    f"launches {x['launches']} (step_launches {want}), step "
+                    f"{x['first_ms']:.1f} ms (first)")
+                verdicts += [
+                    (x["loss_rel"] <= STEP_TOL,
+                     f"(a) {label}: DP losses vs one process"),
+                    (x["agree"] >= agree_min,
+                     f"(a) {label}: G after the DP step vs one process"),
+                    (x["bn_rel"] <= bn_max,
+                     f"(a) {label}: running statistics vs one process"),
+                    ((x["bn_tensors"] > 0) == (cfg.norm == "batch"),
+                     f"(a) {label}: running statistics under norm=batch"),
+                    (x["launches"] == want,
+                     f"(a) {label}: launches a rank == step_launches")]
+        first = next(iter(cfgs))
+        gloo_ms = [res[first]["second_ms"] for res in ranks]
+        for cond, msg in verdicts:
+            check(cond, msg)
+        log(f"phase 11 (a) two gloo ranks sharing one card (gradients "
+            f"through the host; not a scaling figure): second f32 step "
+            f"{gloo_ms[0]:.1f} / {gloo_ms[1]:.1f} ms against the plain "
+            f"step's {plain_ms:.1f} ms at B={TRAIN_BATCH} (phase 5); "
+            f"(a) took {a_s:.1f} s  [{card}]")
+        paths["dp_gloo_steps"] = {k: sum(
+            res[label]["launches"][k] for res in ranks for label in cfgs)
+            + sum(res[first]["launches_timed"][k] - res[first]["launches"][k]
+                  for res in ranks)
+            for k in ("scan_stream", "kbar_build")}
+
+        # -- (b) one rank over NCCL through the command line --
+        dirs = write_synthetic_data(os.path.join(root, "data"), 256, center,
+                                    strokes, small)
+        result = os.path.join(root, "b.json")
+        args = ["--multihost", "--dataroot", dirs["img"], "--maskroot",
+                dirs["mask"], "--refroot", dirs["ref"], "--validroot",
+                dirs["val"], "--batch_size", str(TRAIN_BATCH), "--niter",
+                "1", "--niter_decay", "0", "--save_epoch_freq", "5",
+                "--metrics_every", "3", "--data_workers", "4",
+                "--checkpoints_dir", os.path.join(root, "b"), "--name", "b"]
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", os.path.abspath(__file__),
+             "--phase11b", result, "--"] + args,
+            cwd=here, capture_output=True, text=True, timeout=CHILD_TIMEOUT_S,
+            env=dict(os.environ, PYTHONPATH=here))
+        b_s = time.perf_counter() - t0
+        for line in res.stdout.splitlines():
+            log(f"  (b) {line}")
+        check(res.returncode == 0, "phase 11 (b): torch.distributed.run "
+              f"exited {res.returncode}: {res.stderr[-3000:]}")
+        with open(result) as f:
+            b = json.load(f)
+        steps = b["step_ms"]
+        dp_ms = statistics.median(steps[1:])
+        coll = b["profile"].get("collective (NCCL)", 0.0)
+        log(f"phase 11 (b) _cli train --multihost under torch.distributed.run"
+            f" ({b['group'][0]}, world size {b['group'][1]}): {len(steps)} "
+            f"steps at B={TRAIN_BATCH}, DP step median {dp_ms:.1f} ms (steps "
+            f"2-{len(steps)}, {min(steps[1:]):.1f} to {max(steps[1:]):.1f}; "
+            f"first {steps[0]:.1f}) against the plain step's {plain_ms:.1f} "
+            f"ms (phase 5): {dp_ms / plain_ms:.3f}x; NCCL device time "
+            f"{coll:.3f} ms a step, {b['grad_bytes']} bytes of gradients "
+            f"all-reduced a step; launches {b['launches']}; {b_s:.1f} s  "
+            f"[{card}]")
+        check(b["group"] == ["nccl", 1], "(b) one rank over NCCL")
+        check(len(steps) == 6 and len(b["metric_rows"]) == 6
+              and all(np.isfinite(v) for row in b["metric_rows"]
+                      for v in row.values()),
+              "(b) 6 steps with finite metrics")
+        check(b["launches"] == {"scan_stream": 6 + 2, "kbar_build": 6},
+              "(b) scan: 6 steps + 2 validation batches; kbar: 6 steps")
+        paths["dp_nccl_cli"] = b["launches"]
+
+        # -- (c) a two-rank gloo Trainer.fit: 2 epochs of 3 steps --
+        cdirs = dict(dirs, img=os.path.join(root, "c_img"))
+        os.makedirs(cdirs["img"])
+        for name in sorted(os.listdir(dirs["img"]))[:3 * TRAIN_BATCH]:
+            os.symlink(os.path.join(dirs["img"], name),
+                       os.path.join(cdirs["img"], name))
+        # a constant learning rate ('lambda' with niter_decay 0 would stop
+        # training after the first epoch)
+        ccfg = Config(batch_size=TRAIN_BATCH, niter=2, niter_decay=0,
+                      lr_policy="step", lr_decay_iters=100,
+                      save_epoch_freq=2, metrics_every=3, data_workers=2,
+                      checkpoints_dir=os.path.join(root, "c"), name="c")
+        t0 = time.perf_counter()
+        run_children(dp_fit_rank, [(r, f"file://{root}/rendezvous_c", root,
+                                    ccfg, cdirs) for r in range(P11_WORLD)],
+                     "phase 11 (c)")
+        c_s = time.perf_counter() - t0
+        fits = []
+        for r in range(P11_WORLD):
+            with open(os.path.join(root, f"fit{r}.json")) as f:
+                fits.append(json.load(f))
+        for r, x in enumerate(fits):
+            log(f"phase 11 (c) gloo rank {r}: checkpoint writes "
+                f"{x['writes']}, validation losses {x['valid']}, restore bit"
+                f" for bit {x['restored_bit_for_bit']}, epochs {x['epochs']},"
+                f" steps {x['steps']} then {x['resumed_steps']}, fit "
+                f"{x['fit_s']:.1f} s, launches {x['launches']}")
+        check([x["writes"] for x in fits] == [1, 0],
+              "(c) the checkpoint is written once, by rank 0")
+        check(sorted(f for f in os.listdir(os.path.join(root, "c", "c"))
+                     if f.endswith(".pt")) == ["epoch_2.pt"],
+              "(c) one checkpoint file")
+        check(all(x["restored_bit_for_bit"] for x in fits),
+              "(c) every rank restores rank 0's state bit for bit")
+        check(fits[0]["valid"] == fits[1]["valid"] and len(fits[0]["valid"])
+              == 3 and all(np.isfinite(fits[0]["valid"]))
+              and len(set(fits[0]["valid"])) == 3,
+              "(c) the ranks' validation losses are the same (and move)")
+        check(all(x["epochs"] == [1, 2, 3] and x["steps"] == 6
+                  and x["resumed_steps"] == 9 for x in fits),
+              "(c) 2 epochs of 3 steps, then the resume runs epoch 3")
+        # 9 steps; each epoch validates 2 batches of which a rank holds half
+        check(all(x["launches"] == {"scan_stream": 9 + 3 * 2,
+                                    "kbar_build": 9} for x in fits),
+              "(c) launches a rank: scan 9 steps + 6 validation batches, "
+              "kbar 9 steps")
+        log(f"phase 11 (c) two gloo ranks sharing one card: {c_s:.1f} s "
+            f"(spawn included)  [{card}]")
+        paths["dp_gloo_fit"] = {k: sum(x["launches"][k] for x in fits)
+                                for k in ("scan_stream", "kbar_build")}
+        return {"paths": paths, "gloo_ms": gloo_ms, "dp_ms": dp_ms,
+                "nccl_ms": coll, "grad_bytes": b["grad_bytes"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1520,6 +2014,7 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     log(f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
@@ -2081,9 +2576,17 @@ def main() -> int:
                      small_batch, losses["cuda"], batches, phase6)
     log(f"phase 10: {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 11: data parallelism, 256 px, full width -------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p11 = data_parallel(dev, card, small_batch, steady, center, strokes,
+                        small)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s")
+
     # `launches` sums the main paths (serving, the train step, the trainer,
     # evaluate, phase 8's bf16 / remat / grad_accum paths, phase 9's
-    # serving program and phase 10's int8 and packed paths); the
+    # serving program, phase 10's int8 and packed paths and phase 11's
+    # data-parallel paths, each rank's launches counted); the
     # times are those at B=8, N=1024, the shapes a 256 px train step gives
     # both: `ms` a launch of 20 back to back, `single_launch_ms` the median
     # of single launches, each between its own pair of events.  `n4096`
@@ -2095,12 +2598,13 @@ def main() -> int:
                             "evaluate": program_launches["evaluate"][name],
                             **{path: n[name]
                                for paths in (p8["paths"], p9,
-                                             p10["paths"])
+                                             p10["paths"], p11["paths"])
                                for path, n in paths.items()}}
     n4096 = lambda name: {
         f"B{b}": {k: t[name][k] for k in ("ms", "single_ms", "plain_ms",
                                           "bound_ms", "bound_by")}
         for b, t in p8["timings"].items()}
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s  [{card}]")
     print(json.dumps({"kernels": [{
         "name": "scan_stream", "route": "cuda",
         "source": "deepinpainting_torch/csrc/scan_stream.cu",
@@ -2130,4 +2634,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase11b"]:     # phase 11 (b)'s rank
+        sys.exit(dp_cli_child(sys.argv[2], sys.argv[4:]))
     sys.exit(main())

@@ -3,6 +3,8 @@ deepinpainting_tpu/_cli.py::train, evaluate):
 
     python -m deepinpainting_torch._cli train --dataroot D --maskroot M \
         --refroot R [--validroot V] [--device cpu] [--<any Config field> V]
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m deepinpainting_torch._cli train --multihost ...
     python -m deepinpainting_torch._cli evaluate --dataroot D --maskroot M \
         --name N --which_epoch E [--save_dir S] [--quant int8] [--device cpu]
     python -m deepinpainting_torch._cli serve [--which_epoch E | \
@@ -47,10 +49,48 @@ def train(argv=None):
                     help="write a torch.profiler Chrome trace here")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--multihost", action="store_true",
+                    help="data-parallel training: run this command once a "
+                         "rank (torch.distributed.run starts them and sets "
+                         "RANK/WORLD_SIZE/MASTER_ADDR/MASTER_PORT/"
+                         "LOCAL_RANK, or give --coordinator/"
+                         "--num_processes/--process_id); nccl on the card, "
+                         "gloo with --device cpu.  Each rank decodes its "
+                         "rows of the global batch (--batch_size); rank 0 "
+                         "writes metrics, config and checkpoints")
+    ap.add_argument("--coordinator", default="",
+                    help="coordinator address host:port (multihost; omit "
+                         "to read the group from the environment)")
+    ap.add_argument("--num_processes", type=int, default=0,
+                    help="total process count (multihost; 0: from the "
+                         "environment)")
+    ap.add_argument("--process_id", type=int, default=-1,
+                    help="this process's rank (multihost; -1: from the "
+                         "environment)")
     add_config_flags(ap)
     args = ap.parse_args(argv)
     field_names = {f.name for f in dataclasses.fields(Config)}
     cfg = Config(**{k: v for k, v in vars(args).items() if k in field_names})
+
+    device = args.device
+    if args.multihost:
+        given = [bool(args.coordinator), args.num_processes > 0,
+                 args.process_id >= 0]
+        if any(given) and not all(given):
+            ap.error(
+                "--coordinator/--num_processes/--process_id must be given "
+                "together (or all omitted, in which case the group is read "
+                "from the environment that torch.distributed.run sets)")
+        import torch.distributed as dist
+
+        from .parallel.mesh import init_distributed
+        device = init_distributed(args.device, None,
+                                  args.coordinator or None,
+                                  args.num_processes, args.process_id)
+        if dist.get_rank() == 0:
+            print(f"multihost: process {dist.get_rank()}/"
+                  f"{dist.get_world_size()}, device {device}, backend "
+                  f"{dist.get_backend()}", flush=True)
 
     from .data import InpaintDataset
     from .engine.trainer import Trainer
@@ -64,8 +104,12 @@ def train(argv=None):
                                   cfg.fine_size, seed=cfg.seed + 1)
     print(f"train images: {len(train_ds)}"
           + (f", valid images: {len(valid_ds)}" if valid_ds else ""))
-    trainer = Trainer(cfg, train_ds, valid_ds, device=args.device)
-    trainer.fit(profile_dir=args.profile_dir or None)
+    trainer = Trainer(cfg, train_ds, valid_ds, device=device)
+    try:
+        trainer.fit(profile_dir=args.profile_dir or None)
+    finally:
+        if args.multihost:
+            dist.destroy_process_group()
 
 
 def evaluate(argv=None):

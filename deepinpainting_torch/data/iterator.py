@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -30,30 +30,36 @@ class BatchIterator:
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True, workers: int = 0,
-                 backend: str = "process", rows: Optional[tuple] = None):
+                 backend: str = "process",
+                 rows: Union[Tuple[int, int], List[Tuple[int, int]],
+                             None] = None):
         if drop_last and len(dataset) < batch_size:
             raise ValueError(
                 f"dataset has {len(dataset)} items < batch_size "
                 f"{batch_size} with drop_last — every epoch would be empty")
         self.dataset = dataset
         self.batch_size = batch_size
-        # rows=(lo, hi): materialize only this [lo, hi) slice of every
-        # global batch (a process of a multi-process run decodes the rows
-        # its devices hold), while the shuffle order and the per-item
+        # rows=(lo, hi), or a list of such slices: materialize only these
+        # rows of every global batch, in order (a rank of a data-parallel
+        # run decodes the rows it holds, parallel/mesh.py::
+        # process_batch_rows), while the shuffle order and the per-item
         # generators stay seed-identical across processes: the full
         # batch's rng spawn happens everywhere; only the fetches are sliced.
+        self._sel = None
         if rows is not None:
-            lo, hi = rows
-            if not (0 <= lo < hi <= batch_size):
-                raise ValueError(f"rows={rows} must be a non-empty slice of "
-                                 f"[0, {batch_size})")
+            pairs = [rows] if isinstance(rows, tuple) else list(rows)
+            for lo, hi in pairs:
+                if not (0 <= lo < hi <= batch_size):
+                    raise ValueError(f"rows={rows} must be non-empty slices "
+                                     f"of [0, {batch_size})")
+            self._sel = np.concatenate([np.arange(lo, hi)
+                                        for lo, hi in pairs])
             if not drop_last:
                 # a short tail batch has no consistent per-process rows
                 raise ValueError(
                     "rows requires drop_last=True (row slicing needs "
                     "fixed-size global batches; a ragged tail batch has no "
                     "consistent per-process rows)")
-        self.rows = rows
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.rng = np.random.default_rng(seed)
@@ -80,23 +86,27 @@ class BatchIterator:
         return n // self.batch_size if self.drop_last else (
             (n + self.batch_size - 1) // self.batch_size)
 
-    def _rows(self, n: int) -> tuple:
-        # rows implies drop_last (checked in __init__), so n is the full
-        # batch_size here
-        return (0, n) if self.rows is None else self.rows
+    def _select(self, idx):
+        """(the batch's dataset indices, their generators) for the rows
+        this iterator materializes; the full batch's generators are
+        spawned either way.  rows implies drop_last (checked in __init__),
+        so idx is a full batch when rows are given."""
+        rngs = self.rng.spawn(len(idx))
+        if self._sel is None:
+            return idx, rngs
+        return idx[self._sel], [rngs[i] for i in self._sel]
 
     def _load(self, idx) -> list:
-        lo, hi = self._rows(len(idx))
         if hasattr(self.dataset, "fetch"):
-            # spawn the full batch's generators, fetch only [lo, hi)
-            rngs = self.rng.spawn(len(idx))[lo:hi]
-            idx = idx[lo:hi]
+            idx, rngs = self._select(idx)
             if self.workers > 0 and self.backend == "thread":
                 return list(self._tpool.map(self.dataset.fetch,
                                             [int(i) for i in idx], rngs))
             return [self.dataset.fetch(int(i), r)
                     for i, r in zip(idx, rngs)]
-        return [self.dataset[int(i)] for i in idx[lo:hi]]
+        if self._sel is not None:
+            idx = idx[self._sel]
+        return [self.dataset[int(i)] for i in idx]
 
     def __del__(self):
         if getattr(self, "_tpool", None) is not None:
@@ -129,10 +139,9 @@ class BatchIterator:
         pool = self.dataset.get_pool(self.workers)
 
         def submit(idx):
-            lo, hi = self._rows(len(idx))
-            rngs = self.rng.spawn(len(idx))[lo:hi]
-            return pool.submit(_pool_fetch_batch,
-                               [int(i) for i in idx[lo:hi]], rngs)
+            idx, rngs = self._select(idx)
+            return pool.submit(_pool_fetch_batch, [int(i) for i in idx],
+                               rngs)
 
         it = self._batch_indices()
         futs = deque()

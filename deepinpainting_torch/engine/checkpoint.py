@@ -9,6 +9,12 @@ resume is exact.  Each file is written under a temporary name and renamed
 into place, so a crash never leaves a partial checkpoint under an epoch's
 name.  Per-network .npz export/import in the JAX package's flat key layout
 is kept for interop with it.
+
+In a data-parallel run (`group`, parallel/mesh.py) every rank holds the
+same state: rank 0 alone writes, every rank restores from the same
+directory, and the file is the same object a one-process run writes, so
+a run of W ranks resumes from a one-process checkpoint and the other way
+round.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch.nn as nn
 
 from ..config import Config
 from ..device import DeviceLike, resolve_device
+from ..parallel.collectives import broadcast_flag
 from .state import TrainState
 
 _FILE = re.compile(r"^epoch_(\d+)\.pt$")
@@ -58,24 +65,34 @@ class CheckpointManager:
     the trainer's validation pass.  One write is in flight at a time;
     wait(), restore() and the listings finish it first and raise its
     error, if it had one.
+
+    group: a torch.distributed group whose ranks all call save, wait,
+    restore and the listings at the same points.  Rank 0 alone writes
+    (config.json included); once a save's file is in place, every rank
+    passes a barrier that carries rank 0's outcome (in wait(), so an async
+    write still overlaps the validation pass), and a failed write raises on
+    every rank.
     """
 
     def __init__(self, cfg: Config, directory: Optional[str] = None,
                  max_to_keep: Optional[int] = None,
-                 async_save: bool = False):
+                 async_save: bool = False, group=None):
         directory = directory or os.path.join(cfg.checkpoints_dir, cfg.name)
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self._cfg = cfg
-        self._config_written = not cfg.is_train
+        self._group = group
+        self.writes = group is None or torch.distributed.get_rank(group) == 0
+        self._config_written = not (cfg.is_train and self.writes)
         cfg_path = os.path.join(self.directory, "config.json")
-        if cfg.is_train and not os.path.exists(cfg_path):
+        if not self._config_written and not os.path.exists(cfg_path):
             cfg.save(cfg_path)
             self._config_written = True
         self.max_to_keep = max_to_keep
         self.async_save = async_save
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False     # a save whose barrier has not run yet
         # the newest save's figures: ms until save() returned, ms until the
         # file was in place, and its size in bytes
         self.last_save: Dict[str, float] = {}
@@ -86,6 +103,9 @@ class CheckpointManager:
     def save(self, epoch: int, state: TrainState) -> None:
         """The reference's model.save(epoch), every network and optimiser."""
         self.wait()
+        self._pending = self._group is not None
+        if not self.writes:
+            return
         if not self._config_written:
             self._cfg.save(os.path.join(self.directory, "config.json"))
             self._config_written = True
@@ -117,10 +137,18 @@ class CheckpointManager:
             self._error = e
 
     def wait(self) -> None:
-        """Finish the write in flight, raising its error if it failed."""
+        """Finish the write in flight, raising its error if it failed (in
+        a group: on every rank, after the barrier)."""
         if self._writer is not None:
             self._writer.join()
             self._writer = None
+        if self._pending:
+            self._pending = False
+            if not broadcast_flag(self._error is None, self._group) \
+                    and self._error is None:
+                raise RuntimeError(
+                    f"rank 0 failed to write a checkpoint under "
+                    f"{self.directory}")
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -5,6 +5,12 @@ The reference's evaluation (test.ipynb cell 3): ref = the image itself,
 per-image PSNR = 10*log10(4/MSE) on [-1,1] tensors, SSIM per IQA_pytorch,
 a 2x2 (real_A, ref, fake_P, fake_B) grid per image, running prints, and
 averages over the first `max_images` (reference: 500).
+
+Data-parallel (torch.distributed initialized, parallel/mesh.py): each rank
+runs the eval step on its rows of every padded global batch, the
+per-image metrics (and, for grids, the images) are gathered in rank order
+as host arrays, and the result is the same on every rank and the same as
+one process's on the same images.  Rank 0 alone prints and writes grids.
 """
 
 from __future__ import annotations
@@ -19,8 +25,9 @@ import torch
 from ..config import Config
 from ..data.iterator import BatchIterator, device_batches
 from ..device import DeviceLike, resolve_device
+from ..parallel import mesh
+from ..parallel.collectives import all_gather_host
 from ..utils import imaging
-from .inpaint import make_eval_step
 
 
 def _pad_tail(batches, batch_size: int):
@@ -44,7 +51,15 @@ def evaluate(cfg: Config, state, dataset, *, max_images: int = 500,
     `device`).  One host fetch of the metrics a batch; the images come to
     the host only when `save_dir` asks for grids."""
     dev = resolve_device(device)
-    eval_step = make_eval_step(cfg, dev)
+    group = mesh.default_group()
+    eval_step = mesh.make_dp_eval_step(cfg, dev, group)
+    rank, rows, gather = 0, None, (lambda a: a)
+    if group is not None:
+        rank = torch.distributed.get_rank(group)
+        rows = mesh.row_index(mesh.process_batch_rows(
+            cfg.batch_size, rank, torch.distributed.get_world_size(group)))
+        gather = lambda a: all_gather_host(a, group)
+    verbose = verbose and rank == 0
     it = BatchIterator(dataset, cfg.batch_size, shuffle=False,
                        drop_last=False, workers=cfg.data_workers)
     total = min(max_images, len(dataset))
@@ -55,19 +70,22 @@ def evaluate(cfg: Config, state, dataset, *, max_images: int = 500,
     n_batches = -(-total // cfg.batch_size)
     batches = itertools.islice(_pad_tail(iter(it), cfg.batch_size),
                                n_batches)
+    if rows is not None:           # this rank's rows of each global batch
+        batches = ({k: v[rows] for k, v in b.items()} for b in batches)
     for batch in device_batches(batches, dev):
         out = eval_step(state, batch)
-        psnr_v, ssim_v = torch.stack([out["psnr"], out["ssim"]]
-                                     ).cpu().numpy()
+        psnr_v, ssim_v = gather(torch.stack([out["psnr"], out["ssim"]], 1
+                                            ).cpu().numpy()).T
         take = min(len(psnr_v), total - len(per_psnr))
-        vis = ({k: v.cpu().numpy() for k, v in out["visuals"].items()}
-               if save_dir else None)
+        # every rank gathers the images that rank 0's grids show
+        vis = ({k: gather(v.cpu().numpy())
+                for k, v in out["visuals"].items()} if save_dir else None)
         for i in range(take):
             p, s = float(psnr_v[i]), float(ssim_v[i])
             per_psnr.append(p)
             per_ssim.append(s)
             n = len(per_psnr)
-            if vis is not None:
+            if vis is not None and rank == 0:
                 imaging.save_grid(
                     [vis[k][i]
                      for k in ("real_A", "real_Ref", "fake_P", "fake_B")],

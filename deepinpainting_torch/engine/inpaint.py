@@ -33,6 +33,13 @@ Data flow, as the JAX package's:
                runs, as the JAX package's conv_modes(cfg) applies them:
                each entry point runs its body inside ops/convs.py's
                conv_modes(cfg).
+  group      : the train and eval steps take an optional torch.distributed
+               group (parallel/mesh.py): the step is then one rank's share
+               of the step on the global batch, whose relativistic means
+               and BatchNorm moments are the global batch's
+               (parallel/collectives.py), whose gradients are averaged over
+               the ranks before each phase's update, and whose metrics are
+               the global means.
 
 The public functions take and return the JAX layout (NHWC images, [B,H,W]
 masks) so the two packages compare like with like; images go to NCHW once
@@ -59,6 +66,7 @@ from ..ops import masks as M
 from ..ops.attention import check_impl
 from ..ops.convs import (INIT_TYPES, NORMS, InstanceNorm, conv_modes,
                          frozen_running_stats, init_weight_)
+from ..parallel.collectives import all_reduce_mean, use_group
 from .state import TrainState, create_train_state
 
 
@@ -378,6 +386,20 @@ def make_serving_fn(cfg: Config, device: DeviceLike = None):
 # train step
 # ---------------------------------------------------------------------------
 
+def _mean_over(group, tensors):
+    """`tensors` in one process (group None); in a group, each one's mean
+    over the ranks, through one all-reduce of one flat buffer."""
+    tensors = list(tensors)
+    return tensors if group is None else all_reduce_mean(tensors, group)
+
+
+def _global_metrics(group, metrics: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """The metrics detached, and in a group their means over the ranks."""
+    return dict(zip(metrics, _mean_over(
+        group, (v.detach() for v in metrics.values()))))
+
+
 def _apply_grads(opt: torch.optim.Optimizer, params, grads) -> None:
     for p, g in zip(params, grads):
         p.grad = g
@@ -432,10 +454,12 @@ def _g_losses(cfg: Config, D, F, fwd: ForwardOut, gt, fake_feat, vgg_gt,
     return loss_G, loss_G_GAN, loss_G_L1, cos
 
 
-def make_train_step(cfg: Config, device: DeviceLike = None):
+def make_train_step(cfg: Config, device: DeviceLike = None, group=None):
     """train_step(state, batch, generator=None) -> (state, metrics): one
     optimisation step of all four networks, D and F first, then G and P
-    against the updated discriminators.
+    against the updated discriminators.  With a torch.distributed `group`
+    the step is one rank's share of the step on the global batch (batch
+    holds the rank's rows; parallel/mesh.py::make_dp_train_step).
 
     batch: {'image', 'ref'}: [B,H,W,3] uint8 (or [-1,1] f32), 'mask':
     [B,H,W] (uint8 0/1, or f32), numpy or tensors.  `generator` (on
@@ -453,11 +477,11 @@ def make_train_step(cfg: Config, device: DeviceLike = None):
     impl = check_impl(cfg.attention_impl)
     dt = compute_dtype(cfg)
     if cfg.grad_accum > 1:
-        return _make_accum_train_step(cfg, dev, impl, dt)
+        return _make_accum_train_step(cfg, dev, impl, dt, group)
 
     def train_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
-        with conv_modes(cfg):
+        with conv_modes(cfg), use_group(group):
             return _train_step(state, batch, generator)
 
     def _train_step(state: TrainState, batch,
@@ -485,8 +509,8 @@ def make_train_step(cfg: Config, device: DeviceLike = None):
         params_D, params_F = list(D.parameters()), list(F.parameters())
         # autograd.grad frees the D-phase graph, so the in-place optimiser
         # steps below invalidate no tensor saved for a later backward.
-        grads = torch.autograd.grad(0.5 * loss_D_img + 0.5 * loss_F_feat,
-                                    params_D + params_F)
+        grads = _mean_over(group, torch.autograd.grad(
+            0.5 * loss_D_img + 0.5 * loss_F_feat, params_D + params_F))
         _apply_grads(state.opt_D, params_D, grads[:len(params_D)])
         _apply_grads(state.opt_F, params_F, grads[len(params_D):])
 
@@ -494,14 +518,15 @@ def make_train_step(cfg: Config, device: DeviceLike = None):
         loss_G, loss_G_GAN, loss_G_L1, cos = _g_losses(
             cfg, D, F, fwd, gt, fake_feat, vgg_gt, fmask)
         params_G, params_P = list(G.parameters()), list(P.parameters())
-        grads = torch.autograd.grad(loss_G, params_G + params_P)
+        grads = _mean_over(group, torch.autograd.grad(
+            loss_G, params_G + params_P))
         _apply_grads(state.opt_G, params_G, grads[:len(params_G)])
         _apply_grads(state.opt_P, params_P, grads[len(params_G):])
 
         state.step += 1
         metrics = {"G_GAN": loss_G_GAN, "G_L1": loss_G_L1, "D": loss_D_img,
                    "F": loss_F_feat, "cosis": cos, "loss": loss_G_L1}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, _global_metrics(group, metrics)
 
     return train_step
 
@@ -529,7 +554,7 @@ def _accumulate(acc, grads):
 
 
 def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
-                           dt: torch.dtype):
+                           dt: torch.dtype, group):
     """The gradient-accumulated train step (cfg.grad_accum = k > 1), as the
     JAX package's _make_accum_train_step states it: the batch splits into
     k microbatches, and only one microbatch's activations live at a time.
@@ -548,12 +573,17 @@ def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
     per microbatch in the D phase and twice more per microbatch in the G
     phase.  The relativistic GAN losses take batch means inside, so the
     step is not the same function as one step on the whole batch.
+
+    In a group each rank's batch holds its share of every global
+    microbatch in order (parallel/mesh.py::process_batch_rows), so chunk i
+    of it is the rank's rows of microbatch i, and the relativistic means
+    and BatchNorm moments of each microbatch are the global microbatch's.
     """
     k = cfg.grad_accum
 
     def train_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
-        with conv_modes(cfg):
+        with conv_modes(cfg), use_group(group):
             return _train_step(state, batch, generator)
 
     def _train_step(state: TrainState, batch,
@@ -589,6 +619,7 @@ def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
             loss_F_feat = loss_F_feat + l_F.detach()
         for g in acc:
             g.div_(k)
+        acc = _mean_over(group, acc)
         _apply_grads(state.opt_D, params_D, acc[:len(params_D)])
         _apply_grads(state.opt_F, params_F, acc[len(params_D):])
 
@@ -612,6 +643,7 @@ def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
             sums = [s + v.detach() for s, v in zip(sums, parts)]
         for g in acc:
             g.div_(k)
+        acc = _mean_over(group, acc)
         _apply_grads(state.opt_G, params_G, acc[:len(params_G)])
         _apply_grads(state.opt_P, params_P, acc[len(params_G):])
 
@@ -620,7 +652,7 @@ def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
         metrics = {"G_GAN": loss_G_GAN, "G_L1": loss_G_L1,
                    "D": loss_D_img / k, "F": loss_F_feat / k, "cosis": cos,
                    "loss": loss_G_L1}
-        return state, metrics
+        return state, _global_metrics(group, metrics)
 
     return train_step
 
@@ -629,7 +661,7 @@ def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
 # eval step and the coarse stage
 # ---------------------------------------------------------------------------
 
-def make_eval_step(cfg: Config, device: DeviceLike = None):
+def make_eval_step(cfg: Config, device: DeviceLike = None, group=None):
     """eval_step(state, batch) -> dict: the reference's model.test(), a
     deterministic forward with the validation losses and per-image metrics.
 
@@ -645,7 +677,10 @@ def make_eval_step(cfg: Config, device: DeviceLike = None):
       visuals          real_A (the zero-holed input), real_Ref, fake_B,
                        fake_P, real_B, each [B,H,W,3]
     The eval forward builds no attention matrix: one scan launch a call on
-    the card, no kbar.
+    the card, no kbar.  With a torch.distributed `group` (parallel/mesh.py
+    ::make_dp_eval_step) batch holds the rank's rows: the images and the
+    per-image metrics are the rank's, loss_ipsr and loss_valid the global
+    batch's.
     """
     from ..utils.metrics import psnr, ssim
     dev = resolve_device(device)
@@ -655,6 +690,10 @@ def make_eval_step(cfg: Config, device: DeviceLike = None):
 
     @torch.inference_mode()
     def eval_step(state, batch) -> Dict[str, object]:
+        with use_group(group):
+            return _eval_step(state, batch)
+
+    def _eval_step(state, batch) -> Dict[str, object]:
         G, P, vgg = state.G, state.P, state.vgg
         modes = (G.training, P.training)
         G.eval()
@@ -674,11 +713,13 @@ def make_eval_step(cfg: Config, device: DeviceLike = None):
             G.train(modes[0])
             P.train(modes[1])
         nhwc = lambda t: t.permute(0, 2, 3, 1)
-        return {
-            "fake_B": nhwc(fwd.fake_B), "fake_P": nhwc(fwd.fake_P),
+        losses = _global_metrics(group, {
             "loss_ipsr": ra_gan_loss(gt, fwd.fake_B, False, cfg.gan_type),
             "loss_valid": (l1_loss(fwd.fake_B, gt)
-                           + l1_loss(fwd.fake_P, gt)) * cfg.lambda_A,
+                           + l1_loss(fwd.fake_P, gt)) * cfg.lambda_A})
+        return {
+            "fake_B": nhwc(fwd.fake_B), "fake_P": nhwc(fwd.fake_P),
+            **losses,
             "psnr": psnr(gt, fwd.fake_B), "ssim": ssim(gt, fwd.fake_B),
             "visuals": {"real_A": nhwc(fwd.known), "real_Ref": nhwc(ref),
                         "fake_B": nhwc(fwd.fake_B),

@@ -11,6 +11,15 @@ loader workers and uploaded in a background thread
 (data/iterator.py::device_batches), step metrics stay on the device and
 come to the host once every `metrics_every` steps, and the checkpoint's
 disk write overlaps the validation pass.
+
+Data-parallel (once torch.distributed is initialized, parallel/mesh.py::
+init_distributed; `_cli.py train --multihost`): every rank walks the same
+seeded epoch and decodes only its rows of each global batch, and runs the
+data-parallel step, whose metrics and validation losses are the global
+ones, so every rank takes the same decisions (the NaN guard, early
+stopping, the plateau schedule).  Rank 0 alone writes metrics, visuals,
+the config and checkpoints, as the JAX package's process 0 does; the
+grid shows the global batch's first image, which rank 0 holds.
 """
 
 from __future__ import annotations
@@ -25,44 +34,60 @@ import torch
 from ..config import Config
 from ..data.iterator import BatchIterator, device_batches
 from ..device import DeviceLike, resolve_device
+from ..parallel import mesh
 from ..utils import imaging
 from ..utils.metrics import MetricsLogger
 from ..utils.profiling import trace
 from .checkpoint import CheckpointManager
-from .inpaint import create_state, make_eval_step, make_train_step
+from .inpaint import create_state
 from .schedules import EarlyStopping, PlateauScheduler, lr_for_epoch
 from .state import TrainState, set_learning_rate
+
+
+class _NullLogger:
+    """The metrics sink of every rank but 0: the ranks compute the same
+    global metrics, and rank 0 writes them."""
+
+    def log_step(self, *a, **k): pass
+    def log_epoch(self, *a, **k): pass
+    def save_loss_plot(self): pass
+    def close(self): pass
 
 
 class Trainer:
     def __init__(self, cfg: Config, train_dataset, valid_dataset=None, *,
                  out_dir: Optional[str] = None, device: DeviceLike = None):
         self.device = resolve_device(device)
-        # one process on one device: spatial partitioning and data
-        # parallelism across processes are refused by name
         if cfg.sp_devices > 1:
             raise NotImplementedError(
                 f"sp_devices={cfg.sp_devices} is not ported yet (the port "
-                "trains on one device)")
-        dist = torch.distributed
-        if (dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1):
-            raise NotImplementedError(
-                "multi-process data-parallel training is not ported yet "
-                "(the port trains in one process)")
+                "trains data-parallel only)")
         self.cfg = cfg
         self.train_dataset = train_dataset
         self.valid_dataset = valid_dataset
         self.out_dir = out_dir or os.path.join(cfg.checkpoints_dir, cfg.name)
         os.makedirs(self.out_dir, exist_ok=True)
-        self.train_step = make_train_step(cfg, self.device)
-        self.eval_step = make_eval_step(cfg, self.device)
+        # a process group, if torch.distributed is initialized: this
+        # process is one rank of a data-parallel run
+        self.group = mesh.default_group()
+        self.rank, self._rows = 0, None
+        if self.group is not None:
+            self.rank = torch.distributed.get_rank(self.group)
+            self._rows = mesh.process_batch_rows(
+                cfg.batch_size, self.rank,
+                torch.distributed.get_world_size(self.group), cfg.grad_accum)
+        self.primary = self.rank == 0
+        self.train_step = mesh.make_dp_train_step(cfg, self.device,
+                                                  self.group)
+        self.eval_step = mesh.make_dp_eval_step(cfg, self.device, self.group)
         # dropout's stream: from its own seed, so it differs from the JAX
-        # package's (parity runs keep use_dropout off, the default)
+        # package's (parity runs keep use_dropout off, the default), and
+        # one a rank, so that the ranks' rows draw different masks
         self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed + 1)
-        self.ckpt = CheckpointManager(cfg, async_save=True)
-        self.logger = MetricsLogger(self.out_dir)
+            cfg.seed + 1 + (self.rank << 32))
+        self.ckpt = CheckpointManager(cfg, async_save=True, group=self.group)
+        self.logger = (MetricsLogger(self.out_dir) if self.primary
+                       else _NullLogger())
         self.early = EarlyStopping(cfg.early_stop_patience)
         self.plateau = (PlateauScheduler(cfg.lr)
                         if cfg.lr_policy == "plateau" else None)
@@ -91,7 +116,7 @@ class Trainer:
         ep = self.resume_epoch()
         if ep is not None:
             state = self.ckpt.restore(ep, state, self.device)
-        return state
+        return mesh.replicate_state(state, self.group)
 
     # -- epochs --------------------------------------------------------------
     def train_epoch(self, state: TrainState, epoch: int, total_steps: int):
@@ -99,7 +124,8 @@ class Trainer:
         total_steps counts images, as the reference's counter does."""
         cfg = self.cfg
         it = BatchIterator(self.train_dataset, cfg.batch_size,
-                           seed=cfg.seed + epoch, workers=cfg.data_workers)
+                           seed=cfg.seed + epoch, workers=cfg.data_workers,
+                           rows=self._rows)
         losses = []
         window = []   # (images so far, wall time, metrics on the device)
         every = max(1, cfg.metrics_every)
@@ -140,7 +166,8 @@ class Trainer:
         if self.valid_dataset is None:
             return float("nan")
         it = BatchIterator(self.valid_dataset, self.cfg.batch_size,
-                           shuffle=False, workers=self.cfg.data_workers)
+                           shuffle=False, workers=self.cfg.data_workers,
+                           rows=self._rows)
         losses = [self.eval_step(state, b)["loss_valid"]
                   for b in device_batches(iter(it), self.device)]
         if not losses:
@@ -151,7 +178,9 @@ class Trainer:
     def _dump_visuals(self, state, batch, epoch, step):
         # train.ipynb cell 2's display_freq grid: real_A, real_B, fake_P,
         # fake_B of the batch's first image
-        vis = self.eval_step(state, batch)["visuals"]
+        vis = self.eval_step(state, batch)["visuals"]   # collective
+        if not self.primary:
+            return
         imgs = [vis[k][0].cpu().numpy()
                 for k in ("real_A", "real_B", "fake_P", "fake_B")]
         imaging.save_grid(imgs, os.path.join(
@@ -161,13 +190,16 @@ class Trainer:
     # -- full run ------------------------------------------------------------
     def fit(self, state: Optional[TrainState] = None, *,
             profile_dir: Optional[str] = None) -> TrainState:
+        """Train from `state` (else init_state()'s) to the last epoch.  In
+        a data-parallel run a given state must be the same on every rank
+        (parallel/mesh.py::replicate_state); rank 0 writes the trace."""
         cfg = self.cfg
         resumed = self.resume_epoch()
         state = state if state is not None else self.init_state()
         total_steps = 0
         first_epoch = (resumed + 1 if resumed is not None
                        else cfg.epoch_count)
-        with trace(profile_dir):
+        with trace(profile_dir if self.primary else None):
             for epoch in range(first_epoch, cfg.niter + cfg.niter_decay + 1):
                 state, train_loss, total_steps = self.train_epoch(
                     state, epoch, total_steps)
@@ -178,7 +210,8 @@ class Trainer:
 
                 check = valid_loss if np.isfinite(valid_loss) else train_loss
                 if self.early(check):
-                    print("Early stopping")
+                    if self.primary:
+                        print("Early stopping")
                     break
                 # the reference steps its schedulers once an epoch
                 if self.plateau is not None:

@@ -8,7 +8,11 @@
         ( mean((real - mean(fake) - 1)^2)
         + mean((fake - mean(real) + 1)^2) ) / 2
 
-    and the generator direction flips the signs.
+    and the generator direction flips the signs.  Inside a process group
+    (parallel/collectives.py::use_group) mean(fake) and mean(real) are the
+    global batch's, as under the JAX package's SPMD step: one all-reduce of
+    the two local sums, with autograd.  The outer means stay local, and the
+    data-parallel step averages every rank's losses.
   * L1 terms: (L1(fake_B, gt) + L1(fake_P, gt)) * lambda_A, the sum taken
     by the train step.
   * `inner_cos_loss`: MSE(feat * feat_mask * strength, vgg_gt_relu4_3), the
@@ -18,6 +22,10 @@
 from __future__ import annotations
 
 import torch
+
+import torch.distributed as dist
+
+from .parallel.collectives import all_reduce_sum, current_group
 
 
 def _mse(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -32,12 +40,23 @@ def _bce_with_labels(pred: torch.Tensor, label: float) -> torch.Tensor:
     return -torch.mean(label * torch.log(p) + (1 - label) * torch.log(1 - p))
 
 
+def _batch_means(a: torch.Tensor, b: torch.Tensor):
+    """(mean(a), mean(b)) over the batch, the global one inside a
+    process group (a and b have the same shape on every rank)."""
+    group = current_group()
+    if group is None:
+        return torch.mean(a), torch.mean(b)
+    sums = all_reduce_sum(torch.stack([a.sum(), b.sum()]), group)
+    return (sums / (a.numel() * dist.get_world_size(group))).unbind()
+
+
 def ra_gan_loss(pred_fake: torch.Tensor, pred_real: torch.Tensor,
                 target_is_real: bool, gan_type: str = "lsgan") -> torch.Tensor:
     """Relativistic-average GAN loss; argument order (pred_on_fake,
     pred_on_real, discriminator direction?)."""
-    real_rel = pred_real - torch.mean(pred_fake)
-    fake_rel = pred_fake - torch.mean(pred_real)
+    mean_fake, mean_real = _batch_means(pred_fake, pred_real)
+    real_rel = pred_real - mean_fake
+    fake_rel = pred_fake - mean_real
     if gan_type in ("lsgan", "wgan_gp"):
         if target_is_real:
             return 0.5 * (_mse(real_rel, 1.0) + _mse(fake_rel, -1.0))

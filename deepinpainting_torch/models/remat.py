@@ -14,10 +14,12 @@ here by hand:
     the recompute, and put back where the step left it afterwards;
   * a recomputed train-mode BatchNorm would move its running statistics a
     second time: the recompute runs under frozen_running_stats;
-  * the conv modes (ops/convs.py) are held per thread, and autograd may
-    run the backward, and with it the recompute, in a thread of its own:
-    the modes in force when the level is called are entered again for the
-    recompute, which then takes the forward's conv paths.
+  * the conv modes (ops/convs.py) and the process group of a
+    data-parallel step (parallel/collectives.py) are held per thread, and
+    autograd may run the backward, and with it the recompute, in a thread
+    of its own: the modes and the group in force when the level is called
+    are entered again for the recompute, which then takes the forward's
+    conv paths and the global batch's BatchNorm moments.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.convs import current_modes, frozen_running_stats, use_modes
+from ..parallel.collectives import current_group, use_group
 
 
 def mark_levels(outermost: nn.Module, remat: bool, depth: int) -> None:
@@ -47,7 +50,7 @@ def checkpoint_level(level: nn.Module, fn: Callable, x: torch.Tensor,
     `generator` is the dropout's (None: the device's default generator,
     which checkpoint itself replays)."""
     entry = None if generator is None else generator.get_state()
-    modes = current_modes()
+    modes, group = current_modes(), current_group()
     calls = 0
 
     def run(x):
@@ -55,13 +58,14 @@ def checkpoint_level(level: nn.Module, fn: Callable, x: torch.Tensor,
         calls += 1
         if calls == 1:
             return fn(x)
-        # the recompute: the same dropout draw and conv modes, no
+        # the recompute: the same dropout draw, conv modes and group, no
         # running-statistics move
         left = None if generator is None else generator.get_state()
         if generator is not None:
             generator.set_state(entry)
         try:
-            with frozen_running_stats(level), use_modes(modes):
+            with frozen_running_stats(level), use_modes(modes), \
+                    use_group(group):
                 return fn(x)
         finally:
             if generator is not None:

@@ -50,6 +50,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_reduce_sum, current_group
 from . import quant
 
 INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
@@ -301,13 +302,25 @@ class BatchNorm(nn.BatchNorm2d):
     offset apply in the input's dtype (TorchBatchNorm's arithmetic; a bare
     nn.BatchNorm2d applies them in f32).  Inside frozen_running_stats a
     train-mode forward normalises by its batch as usual but leaves the
-    running statistics where they were."""
+    running statistics where they were.
+
+    Inside a process group (parallel/collectives.py::use_group) train mode
+    takes the global batch's moments over (N, H, W), as the JAX package's
+    TorchBatchNorm does under SPMD: the per-channel sum and count, then
+    the per-channel sum of squared deviations from the global mean, each
+    all-reduced with autograd (two reductions, as the JAX layer's
+    mean((x - mean)^2): a one-pass sum of squares loses digits to
+    cancellation in f32).  The biased variance normalises, and the running
+    variance takes the unbiased one with the global count."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
         self.frozen = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = current_group()
+        if self.training and group is not None:
+            return self._global_forward(x, group)
         mean, var = self.running_mean, self.running_var
         if self.training and self.frozen:
             # copies take the update; passing none would change what the
@@ -320,6 +333,31 @@ class BatchNorm(nn.BatchNorm2d):
                                 self.training, self.momentum, self.eps)
         y = F.batch_norm(x.to(self.weight.dtype), mean, var, None, None,
                          self.training, self.momentum, self.eps).to(x.dtype)
+        return (y * _channels(self.weight, x.dtype)
+                + _channels(self.bias, x.dtype))
+
+    def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        c = xf.shape[1]
+        local = torch.cat([xf.sum(dim=(0, 2, 3)),
+                           xf.new_full((1,), xf.numel() // c)])
+        sums = all_reduce_sum(local, group)
+        n = sums[c]
+        mean = sums[:c] / n
+        centred = xf - mean[:, None, None]
+        var = all_reduce_sum(centred.square().sum(dim=(0, 2, 3)), group) / n
+        if not self.frozen:
+            self.num_batches_tracked.add_(1)
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * n / (n - 1).clamp(min=1)
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * unbiased)
+        y = centred * torch.rsqrt(var + self.eps)[:, None, None]
+        if x.dtype == self.weight.dtype:
+            return y * _channels(self.weight, y.dtype) + _channels(
+                self.bias, y.dtype)
+        y = y.to(x.dtype)
         return (y * _channels(self.weight, x.dtype)
                 + _channels(self.bias, x.dtype))
 

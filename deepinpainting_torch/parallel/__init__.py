@@ -1,0 +1,4 @@
+"""Data parallelism over torch.distributed (counterpart of
+deepinpainting_tpu/parallel/): `collectives.py` holds the process group a
+step runs in and the collectives its layers take, `mesh.py` the process
+group's set-up, the batch split and the data-parallel steps."""

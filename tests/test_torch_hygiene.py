@@ -22,6 +22,7 @@ from deepinpainting_torch.engine.evaluator import evaluate
 from deepinpainting_torch.engine.export_model import (export_serving,
                                                       load_serving)
 from deepinpainting_torch.engine.trainer import Trainer
+from deepinpainting_torch.parallel.mesh import init_distributed
 from deepinpainting_torch.serve.app import InferenceSession, make_app
 
 REPO = Path(__file__).resolve().parent.parent
@@ -55,6 +56,7 @@ def test_import_loads_no_jax():
         "import deepinpainting_torch.demo\n"
         "import deepinpainting_torch.utils.profiling\n"
         "import deepinpainting_torch.utils.params\n"
+        "import deepinpainting_torch.parallel.mesh\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -112,6 +114,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
         lambda: make_app(TINY, from_export=str(tmp_path)),
         lambda: export_serving(TINY, None, str(tmp_path / "art")),
         lambda: load_serving(str(tmp_path)),
+        lambda: init_distributed(),
+        lambda: init_distributed("cuda", "gloo"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -120,6 +124,32 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
     assert resolve_device("cpu").type == "cpu"
     fn, args = TE.entry(device="cpu", cfg=TINY)
     assert fn(*args).shape == (1, 64, 64, 3)
+
+
+def test_init_distributed_takes_gloo_on_a_card_only_when_named(
+        monkeypatch, tmp_path):
+    """nccl for a card and gloo for the CPU, unless the caller names the
+    backend; never gloo on a card on its own, and the device of a card is
+    cuda:LOCAL_RANK."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda dev: None)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    url = f"file://{tmp_path}/rendezvous"
+    trio = dict(coordinator=url, num_processes=2, process_id=1)
+    assert init_distributed("cuda", **trio) == torch.device("cuda", 1)
+    assert init_distributed("cuda", "gloo", **trio).type == "cuda"
+    assert init_distributed("cpu", **trio) == torch.device("cpu")
+    init_distributed("cuda", coordinator="localhost:29500",
+                     num_processes=2, process_id=1)
+    init_distributed("cuda")
+    assert [b for b, _ in calls] == ["nccl", "gloo", "gloo", "nccl", "nccl"]
+    assert calls[0][1] == dict(init_method=url, world_size=2, rank=1)
+    assert calls[3][1]["init_method"] == "tcp://localhost:29500"
+    assert calls[4][1] == dict(init_method="env://")
 
 
 def test_cuda_device_turns_tf32_off(monkeypatch):
