@@ -76,7 +76,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (c) a two-rank gloo Trainer.fit of 2 epochs of 3 steps: one
      checkpoint write, restored bit for bit on both ranks, the same
      validation losses on both, a resume.  The two-rank times share one
-     card: they are no scaling figure.
+     card: they are no scaling figure;
+ 12. spatial partitioning (parallel/spatial.py) at 256 px, full width, f32,
+     TF32 off: (a) two gloo ranks sharing the card serve one b1 request's
+     rows on phase 5's weights, against the one-process forward at phase
+     4's small hole (fake_B 1e-3, fake_P 2e-4) and the center hole (8x
+     the forward's own 1e-7 envelope), each rank's scan launches, the
+     collectives and bytes of a request, the b1 p50; (b) the 1 x 2 grid's
+     train step at global batch 8, f32 instance norm and norm='batch',
+     against the one-process step (losses, G's parameters, running
+     statistics, launches); (c) `_cli serve --sp` under
+     torch.distributed.run on two gloo ranks: a POST over a socket, the
+     answer against the plain session's, the follower leaving with the
+     session; (d) a group of one over NCCL: the SP builders bit for bit
+     with the plain path, their request and step time as a ratio.  The
+     two-rank times are no scaling figure either.
 Three lines end the output, each on its own: a JSON object with a `kernels`
 list, the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -1529,6 +1543,16 @@ DP_AGREE = 0.995       # (a): share of G's parameters within rtol 1e-3 /
 BN_TOL = 1e-4          # (a): running statistics, relative to each tensor's
                        # largest entry, or ENVELOPE_K x the same nudge's
 DP_NUDGE = 1e-7        # (a): the chaos envelope's relative perturbation
+# phase 12 (b): the one-process step's envelope is its largest change over
+# these runs, each with the first weight of the named networks 1e-7 larger
+# (+1) or smaller (-1), and one more on images 1 ulp away (true_division):
+# one nudge alone can miss most of the chaos (F's gradients under
+# norm='batch' on the H100 moved an order of magnitude more under some
+# nudges than under others), and a nudge of a first weight is a uniform
+# scaling that netP's norms take out, where a slab's sums in another order
+# change every value by an ulp or so
+SP_NUDGES = ((("G", "P"), 1.0), (("G", "P"), -1.0), (("G",), 1.0),
+             (("P",), 1.0))
 CHILD_TIMEOUT_S = 300
 
 
@@ -1536,6 +1560,46 @@ def flat_params(net):
     """A network's parameters as one host f32 vector."""
     import torch
     return torch.cat([p.detach().reshape(-1).cpu() for p in net.parameters()])
+
+
+def applied_grads(state) -> dict:
+    """The gradient that the last step applied to each parameter of G, P,
+    D and F (the .grad its phase left), on the host."""
+    return {f"{n}.{k}": p.grad.detach().cpu().clone()
+            for n in ("G", "P", "D", "F")
+            for k, p in getattr(state, n).named_parameters()}
+
+
+def grad_tops(grads: dict) -> dict:
+    """The largest entry of each net's gradients (applied_grads' keys)."""
+    out = {}
+    for k, g in grads.items():
+        net = k.split(".")[0]
+        out[net] = max(out.get(net, 1e-30), float(g.abs().max()))
+    return out
+
+
+def true_division(batch: dict) -> dict:
+    """`batch` with its uint8 images as f32 in [-1, 1], x / 127.5 - 1
+    rounded once from f64: the train step takes f32 images as they are,
+    and its own f32 division by 127.5 (a reciprocal multiply) lands 1 ulp
+    away on about half the pixels."""
+    out = dict(batch)
+    for k in ("image", "ref"):
+        out[k] = (batch[k] / 127.5 - 1.0).astype(np.float32)
+    return out
+
+
+def grad_scales(grads: dict, ref: dict) -> dict:
+    """For each net, the scale of its gradients along the reference's,
+    <g, ref> / <ref, ref>: 1 for the same gradients, n for n times them."""
+    dots = {}
+    for k, g in grads.items():
+        d = dots.setdefault(k.split(".")[0], [0.0, 0.0])
+        w = ref[k].double()
+        d[0] += float((g.double() * w).sum())
+        d[1] += float((w * w).sum())
+    return {n: a / max(b, 1e-300) for n, (a, b) in dots.items()}
 
 
 def running_stats(state) -> dict:
@@ -1993,6 +2057,681 @@ def data_parallel(dev, card: str, small_batch: dict, plain_ms: float,
         return {"paths": paths, "gloo_ms": gloo_ms, "dp_ms": dp_ms,
                 "nccl_ms": coll, "grad_bytes": b["grad_bytes"]}
     finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---- phase 12: spatial partitioning (parallel/spatial.py) ------------------
+
+P12_WORLD = 2          # (a)-(c): gloo ranks sharing the one card
+SP_FAKE_P_TOL = 2e-4   # (a): fake_P, the JAX package's SP tolerance
+                       # (tests/test_parallel.py::
+                       # test_sp_inference_matches_single_device)
+SP_AGREE = 0.90        # (b): G's parameters agreeing, JAX's SP rule
+                       # (test_dp_sp_train_step_matches_single), or twice
+                       # the share the one-process step loses to DP_NUDGE
+SP_BN_TOL = {"G": 1e-3, "P": 1e-3, "D": 1e-2}   # (b): running statistics,
+                       # relative, JAX's SP rule
+                       # (test_dp_sp_batch_norm_stats_match_single), or
+                       # ENVELOPE_K x the nudge's
+SP_GRAD_TOL = 1e-4     # (b): applied gradients, of the leaf's largest entry,
+                       # + 1e-6 + ENVELOPE_K x the envelope's change of the
+                       # leaf (tests/test_torch_sp_step.py's rule), + 1e-3 of
+                       # the net's largest entry: with norm='batch' netP's
+                       # innermost BatchNorm normalises 1x1 maps over the
+                       # batch alone, and the one-process step's gradients
+                       # of its deep leaves move by ~1% of their largest
+                       # entry when its images move by 1 ulp
+SP_GRAD_NET_TOL = 1e-3
+SP_SCALE_TOL = 1e-2    # (b): a net's gradient scale against the one-process
+                       # step's, or ENVELOPE_K x the envelope's; counting
+                       # replicated work n_sp times reads n_sp - 1 = 1
+SP_TIMED = 10          # (a), (d): timed requests
+SP_BN_SIZE = 256       # (b): norm='batch' size (128 if the phase runs long)
+
+
+def count_collectives() -> dict:
+    """Count this process's torch.distributed all_reduce and broadcast
+    calls and their bytes, by the function that made them: the halo
+    exchange, the gather of rows, the all-reduced sums of the norms and
+    means (forward and backward each), or the call itself (the gradient
+    all-reduce, the request's broadcast).  Returns the live dict, {kind:
+    [calls, bytes]}; clear it between the windows it measures."""
+    import torch.distributed as dist
+    counts = {}
+    kinds = {"_HaloExchange": "halo", "_GatherRows": "gather",
+             "_AllReduceSum": "sum"}
+
+    def wrap(fn, name):
+        def counted(tensor, *a, **k):
+            caller = sys._getframe(1).f_code.co_qualname.split(".")[0]
+            c = counts.setdefault(kinds.get(caller, name), [0, 0])
+            c[0] += 1
+            c[1] += tensor.numel() * tensor.element_size()
+            return fn(tensor, *a, **k)
+        return counted
+
+    dist.all_reduce = wrap(dist.all_reduce, "all_reduce")
+    dist.broadcast = wrap(dist.broadcast, "broadcast")
+    return counts
+
+
+def sp_gloo_rank(rank: int, url: str):
+    """Join phase 12's two-rank gloo group on the one card, as phase 11's
+    ranks join theirs."""
+    import torch
+    from deepinpainting_torch.parallel import mesh
+    torch.backends.cudnn.deterministic = True
+    return mesh.init_distributed("cuda", "gloo", url, P12_WORLD, rank)
+
+
+def sp_infer_rank(rank: int, url: str, root: str, cfg, epoch: int) -> None:
+    """Phase 12 (a), one of two gloo ranks sharing the card: phase 5's
+    networks restored from phase 9's checkpoint, make_sp_inference_fn over
+    both ranks, this rank's slab of the small-hole and the center-hole
+    request, then SP_TIMED more small-hole requests timed.  Writes
+    sp_infer{r}.json (launches, collectives, ms) and .npz (the slabs)."""
+    import torch
+    from deepinpainting_torch.engine.checkpoint import CheckpointManager
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.parallel import spatial
+    dev = sp_gloo_rank(rank, url)
+    try:
+        models = CheckpointManager(cfg).restore_models(epoch, dev)
+        grid = spatial.make_sp_group()
+        infer = spatial.make_sp_inference_fn(cfg, dev, grid)
+        with np.load(os.path.join(root, "requests.npz")) as f:
+            reqs = {name: spatial.slab({k: f[f"{name}_{k}"] for k in
+                                        ("image", "mask", "ref")}, grid)
+                    for name in ("small", "center")}
+        counts = count_collectives()
+        out, arrays = {}, {}
+        for name, req in reqs.items():
+            TAC.launches = TAC.kbar_launches = 0
+            counts.clear()
+            fake_B, fake_P = infer(*models, req["image"], req["mask"],
+                                   req["ref"])
+            torch.cuda.synchronize()
+            out[name] = {"launches": {"scan_stream": TAC.launches,
+                                      "kbar_build": TAC.kbar_launches},
+                         "collectives": {k: list(v)
+                                         for k, v in counts.items()}}
+            arrays[f"{name}_B"] = fake_B.cpu().numpy()
+            arrays[f"{name}_P"] = fake_P.cpu().numpy()
+        req = reqs["small"]
+        ms = []
+        TAC.launches = TAC.kbar_launches = 0
+        for _ in range(SP_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            infer(*models, req["image"], req["mask"], req["ref"])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["ms"] = ms
+        out["timed_launches"] = {"scan_stream": TAC.launches,
+                                 "kbar_build": TAC.kbar_launches}
+        np.savez(os.path.join(root, f"sp_infer{rank}.npz"), **arrays)
+        with open(os.path.join(root, f"sp_infer{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def sp_step_rank(rank: int, url: str, root: str, labels) -> None:
+    """Phase 12 (b), one of two gloo ranks sharing the card: for each
+    configuration, a fresh state from seed 0, one step of the 1 x 2 grid
+    (data 1, sp 2) on this rank's slab of the global batch, held against
+    the parent's one-process step.  Writes sp_step{r}.json."""
+    import torch
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.parallel import spatial
+    dev = sp_gloo_rank(rank, url)
+    try:
+        grid = spatial.make_dp_sp_groups(1, P12_WORLD)
+        counts = count_collectives()
+        out = {}
+        for label in labels:
+            ref = torch.load(os.path.join(root, f"{label}.pt"),
+                             weights_only=False)
+            cfg = ref["cfg"]
+            with np.load(os.path.join(root, f"{label}_batch.npz")) as f:
+                batch = spatial.place_spatial(dict(f), grid)
+            state = TI.create_state(
+                cfg, torch.Generator().manual_seed(cfg.seed), dev)
+            step = spatial.make_dp_sp_train_step(cfg, dev, grid)
+            TAC.launches = TAC.kbar_launches = 0
+            counts.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            g = flat_params(state.G)
+            r = {"ms": (time.perf_counter() - t0) * 1e3,
+                 "shape": list(batch["image"].shape),
+                 "launches": {"scan_stream": TAC.launches,
+                              "kbar_build": TAC.kbar_launches},
+                 "collectives": {k: list(v) for k, v in counts.items()}}
+            losses = {k: v.item() for k, v in metrics.items()}
+            r["loss_rel"] = max(abs(losses[k] - ref["losses"][k])
+                                / max(abs(ref["losses"][k]), 1e-12)
+                                for k in losses)
+            r["max_dG_over_lr"] = float((g - ref["G"]).abs().max()) / cfg.lr
+            r["agree"] = float(np.isclose(g.numpy(), ref["G"].numpy(),
+                                          rtol=1e-3, atol=1e-5).mean())
+            r["bn_rel"] = bn_rel_by_net(running_stats(state), ref["bn"])
+            # the applied gradients, leaf by leaf: each net's largest gap
+            # over its largest entry, and its worst leaf over the limit
+            r["grad_rel"], r["grad_worst"] = {}, {}
+            grads = applied_grads(state)
+            r["scale"] = {n: v - 1.0 for n, v in
+                          grad_scales(grads, ref["grads"]).items()}
+            r["scale_limit"] = ref["scale_limit"]
+            for k, g in grads.items():
+                net, want = k.split(".")[0], ref["grads"][k]
+                gap = float((g - want).abs().max())
+                r["grad_rel"][net] = max(r["grad_rel"].get(net, 0.0),
+                                         gap / ref["grad_top"][net])
+                ratio = gap / ref["grad_limit"][k]
+                if ratio >= r["grad_worst"].get(net, {"ratio": -1})["ratio"]:
+                    r["grad_worst"][net] = {
+                        "ratio": ratio, "leaf": k, "gap": gap,
+                        "leaf_max": float(want.abs().max()),
+                        "limit": ref["grad_limit"][k]}
+            out[label] = r
+            del state, step
+            torch.cuda.empty_cache()
+        with open(os.path.join(root, f"sp_step{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def fmt_by_net(d: dict) -> str:
+    return "{" + ", ".join(f"{k}: {v:.3e}" for k, v in sorted(d.items())) \
+        + "}"
+
+
+def bn_rel_by_net(got: dict, want: dict) -> dict:
+    """For G, P and D, the largest change of a running-statistics tensor
+    relative to the reference tensor's largest entry."""
+    out = {}
+    for k, v in got.items():
+        net = k.split(".")[0]
+        rel = float((v - want[k]).abs().max()
+                    / want[k].abs().max().clamp(min=1e-12))
+        out[net] = max(out.get(net, 0.0), rel)
+    return out
+
+
+def sp_cli_child(result_path: str, argv) -> int:
+    """Phase 12 (c), run by torch.distributed.run on two ranks: `_cli serve
+    --sp` with `argv`, gloo in place of nccl (two ranks share the card).
+    Rank 0's server, once up, takes one POST over a socket and a GET of
+    /result, answers the request once more in process for the numbers,
+    and stops; rank 1 follows until the session closes.  Each rank writes
+    `result_path`.rank{r}.json (and rank 0 its answer, .npz)."""
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import wsgiref.simple_server
+    from deepinpainting_torch import _cli
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.parallel import mesh
+    from deepinpainting_torch.serve import app as A
+    rank = int(os.environ["RANK"])
+    out = {"rank": rank}
+    torch.backends.cudnn.deterministic = True   # as the plain session's
+    init = mesh.init_distributed
+    # both ranks on the one card (cuda:LOCAL_RANK would name a second)
+    mesh.init_distributed = lambda device: init("cuda:0", "gloo")
+
+    class Once:
+        """The server of `_cli serve`: serve_forever answers one POST over
+        a socket, then returns."""
+
+        def __init__(self, app):
+            self.app = app
+
+        def serve_forever(self):
+            with np.load(result_path + ".request.npz") as f:
+                img, mask, ref = f["image"], f["mask"], f["ref"]
+            status, location, ms, body = A.post_over_socket(self.app, {
+                "srcImage": encode(img[0], "PNG"),
+                "binaryMask": encode(mask[0] * 255, "PNG"),
+                "refImage": encode(ref[0], "PNG")})
+            from PIL import Image
+            with Image.open(io.BytesIO(body)) as im:
+                out["result_image"] = list(im.size)
+            page = wsgi_call(self.app, "GET", "/result")
+            sess = self.app.session
+            out.update(post_status=status, location=location, post_ms=ms,
+                       result_page=[page[0], b"test.jpg" in page[2]],
+                       grid=list(sess.grid[:4]))
+            np.savez(result_path + ".answer.npz",
+                     u8=sess.run(img, mask, ref))
+            out["calls"] = sess.calls
+
+    wsgiref.simple_server.make_server = lambda host, port, app, **k: Once(app)
+    follow = A.InferenceSession.follow
+
+    def recorded_follow(self):
+        follow(self)
+        out.update(calls=self.calls, grid=list(self.grid[:4]))
+
+    A.InferenceSession.follow = recorded_follow
+    _cli.serve(argv)
+    out["group_left"] = not torch.distributed.is_initialized()
+    out["launches"] = {"scan_stream": TAC.launches,
+                       "kbar_build": TAC.kbar_launches}
+    with open(f"{result_path}.rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def sp_train_steps(dev, card: str, s: int, small_batch: dict,
+                   plain_ms: float, bn_size: int, root: str):
+    """Phase 12 (b): the 1 x 2 grid's train step at global B=8 in f32
+    instance norm and norm='batch' (at `bn_size` px), on two gloo
+    ranks sharing the card, against the one-process step and its own
+    envelope (SP_NUDGES, true_division).  Returns the step times a rank
+    and the kernels' launches."""
+    import torch
+    from deepinpainting_torch.config import Config
+    from deepinpainting_torch.engine import inpaint as TI
+    s_bn = bn_size
+    crop = lambda b, n: {k: v[:, :n, :n] for k, v in b.items()}
+    cfgs = {"f32_instance": (Config(batch_size=TRAIN_BATCH), s),
+            "norm_batch": (Config(batch_size=TRAIN_BATCH, norm="batch",
+                                  fine_size=s_bn), s_bn)}
+    envelope = {}
+    with deterministic_cudnn():
+        for label, (cfg, size) in cfgs.items():
+            batch = crop(small_batch, size)
+            np.savez(os.path.join(root, f"{label}_batch.npz"), **batch)
+            runs = []
+            for nets, sign in ((), 0.0), *SP_NUDGES, ("input", 0.0):
+                state = TI.create_state(
+                    cfg, torch.Generator().manual_seed(cfg.seed), dev)
+                with torch.no_grad():
+                    for n in nets if nets != "input" else ():
+                        next(getattr(state, n).parameters()).mul_(
+                            1.0 + sign * DP_NUDGE)
+                _, m = TI.make_train_step(cfg, dev)(
+                    state, true_division(batch) if nets == "input"
+                    else batch)
+                runs.append({"G": flat_params(state.G),
+                             "losses": {k: v.item() for k, v in m.items()},
+                             "bn": running_stats(state),
+                             "grads": applied_grads(state)})
+                del state
+                torch.cuda.empty_cache()
+            # each figure's envelope: its largest change over those runs
+            ref, nudged = runs[0], runs[1:]
+            ref.update(cfg=cfg, grad_top=grad_tops(ref["grads"]),
+                       grad_limit={}, scale_limit={})
+            env = envelope[label] = {
+                "agree": min(float(np.isclose(
+                    x["G"].numpy(), ref["G"].numpy(), rtol=1e-3,
+                    atol=1e-5).mean()) for x in nudged),
+                "bn_rel": {}, "grad_rel": {}, "scale": {}}
+            for x in nudged:
+                for n, v in bn_rel_by_net(x["bn"], ref["bn"]).items():
+                    env["bn_rel"][n] = max(env["bn_rel"].get(n, 0.0), v)
+                for n, v in grad_scales(x["grads"], ref["grads"]).items():
+                    env["scale"][n] = max(env["scale"].get(n, 0.0),
+                                          abs(v - 1.0))
+            for k, want in ref["grads"].items():
+                n = k.split(".")[0]
+                change = max(float((x["grads"][k] - want).abs().max())
+                             for x in nudged)
+                ref["grad_limit"][k] = (
+                    1e-6 + SP_GRAD_TOL * float(want.abs().max())
+                    + ENVELOPE_K * change
+                    + SP_GRAD_NET_TOL * ref["grad_top"][n])
+                env["grad_rel"][n] = max(env["grad_rel"].get(n, 0.0),
+                                         change / ref["grad_top"][n])
+            ref["scale_limit"] = {n: max(SP_SCALE_TOL, ENVELOPE_K * v)
+                                  for n, v in env["scale"].items()}
+            torch.save(ref, os.path.join(root, f"{label}.pt"))
+            del runs, ref, nudged
+    t0 = time.perf_counter()
+    run_children(sp_step_rank, [(r, f"file://{root}/rendezvous_b", root,
+                                 list(cfgs)) for r in range(P12_WORLD)],
+                 "phase 12 (b)")
+    b_s = time.perf_counter() - t0
+    steps = []
+    for r in range(P12_WORLD):
+        with open(os.path.join(root, f"sp_step{r}.json")) as f:
+            steps.append(json.load(f))
+    verdicts = []
+    for label, (cfg, size) in cfgs.items():
+        want = step_launches(cfg)
+        env = envelope[label]
+        agree_min = 1.0 - max(1.0 - SP_AGREE, 2.0 * (1.0 - env["agree"]))
+        bn_max = {n: max(t, ENVELOPE_K * env["bn_rel"].get(n, 0.0))
+                  for n, t in SP_BN_TOL.items()}
+        log(f"phase 12 (b) {label} ({size} px): the one-process step "
+            f"against itself with a first weight {DP_NUDGE:g} larger or "
+            f"smaller ({len(SP_NUDGES)} runs) and on images 1 ulp away, the "
+            f"largest change: G "
+            f"parameters agreeing {env['agree']:.4%}, running "
+            f"statistics max rel {env['bn_rel']}, applied gradients' "
+            f"largest change over the net's largest entry "
+            f"{fmt_by_net(env['grad_rel'])}, |scale - 1| "
+            f"{fmt_by_net(env['scale'])}")
+        for r, res in enumerate(steps):
+            x = res[label]
+            coll = x["collectives"]
+            log(f"phase 12 (b) {label}, gloo rank {r} of the 1 x "
+                f"{P12_WORLD} grid, slab {x['shape']} of global B="
+                f"{TRAIN_BATCH}: losses vs the one-process step max rel "
+                f"{x['loss_rel']:.3e} (limit {STEP_TOL}), G max|d| "
+                f"{x['max_dG_over_lr']:.3f} lr (limit 2.2), agreeing "
+                f"{x['agree']:.4%} (limit {agree_min:.4%}), running "
+                f"statistics max rel {x['bn_rel']} (limits {bn_max}), "
+                f"applied gradients' scale - 1 {fmt_by_net(x['scale'])} "
+                f"(limits {fmt_by_net(x['scale_limit'])}), largest gap "
+                f"over the net's largest entry {fmt_by_net(x['grad_rel'])},"
+                f" the worst leaf's gap "
+                f"over its limit (limit 1) "
+                + ", ".join(f"{n}: {w['ratio']:.3e} ({w['leaf']}: gap "
+                            f"{w['gap']:.3e}, leaf max {w['leaf_max']:.3e},"
+                            f" limit {w['limit']:.3e})"
+                            for n, w in sorted(x["grad_worst"].items()))
+                + ", "
+                f"launches {x['launches']} (step_launches {want}), "
+                f"step {x['ms']:.1f} ms (first), collectives "
+                + ", ".join(f"{k} {c}/{b} B"
+                            for k, (c, b) in sorted(coll.items())))
+            verdicts += [
+                (x["loss_rel"] <= STEP_TOL,
+                 f"(b) {label}: SP losses vs one process"),
+                (x["max_dG_over_lr"] <= 2.2,
+                 f"(b) {label}: G's largest change vs one process"),
+                (x["agree"] >= agree_min,
+                 f"(b) {label}: G after the SP step vs one process"),
+                (all(x["bn_rel"].get(n, 0.0) <= t
+                     for n, t in bn_max.items()),
+                 f"(b) {label}: running statistics vs one process"),
+                (bool(x["bn_rel"]) == (cfg.norm == "batch"),
+                 f"(b) {label}: running statistics under norm=batch"),
+                (set(x["grad_worst"]) == {"G", "P", "D", "F"}
+                 and max(w["ratio"] for w in x["grad_worst"].values())
+                 <= 1.0,
+                 f"(b) {label}: applied gradients vs one process"),
+                (all(abs(x["scale"][n]) <= x["scale_limit"][n]
+                     for n in ("G", "P", "D", "F")),
+                 f"(b) {label}: applied gradients' scale vs one process"),
+                (x["launches"] == want,
+                 f"(b) {label}: launches a rank == step_launches")]
+    for cond, msg in verdicts:
+        check(cond, msg)
+    log(f"phase 12 (b) took {b_s:.1f} s (spawn included; the two ranks "
+        f"share one card: no scaling figure; the plain step "
+        f"{plain_ms:.1f} ms, phase 5)  [{card}]")
+    return ({label: [x[label]["ms"] for x in steps] for label in cfgs},
+            {k: sum(x[label]["launches"][k] for x in steps for label in cfgs)
+             for k in ("scan_stream", "kbar_build")})
+
+
+def spatial_partitioning(dev, card: str, p9_cfg, epoch: int, small_req,
+                         center_req, small_batch: dict, plain_ms: float,
+                         plain_p50: float, bn_size: int = SP_BN_SIZE
+                         ) -> dict:
+    """Phase 12: spatial partitioning at p9_cfg's size, full width, f32,
+    TF32 off.  (a) two gloo ranks sharing the card serve one request's
+    rows on phase 5's weights, against the one-process forward; (b) the
+    1 x 2 grid's train step at global B=8 in instance norm and
+    norm='batch', against the one-process step; (c) `_cli serve --sp`
+    under torch.distributed.run on two gloo ranks; (d) a group of one over
+    NCCL, bit for bit with the plain path, and what the SP builders cost
+    there.  The two-rank times share one card and move rows through the
+    host: they are no scaling figure.  Returns the kernels' launches by
+    path."""
+    import torch
+    import torch.distributed as dist
+    from deepinpainting_torch.config import Config
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.engine.checkpoint import CheckpointManager
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.parallel import spatial
+    from deepinpainting_torch.serve.app import InferenceSession
+    os.makedirs(BUILD, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_phase12_", dir=BUILD)
+    paths, figures = {}, {}
+    s = p9_cfg.fine_size
+    try:
+        # -- (a) SP inference: references in this process first --
+        models = CheckpointManager(p9_cfg).restore_models(epoch, dev)
+        infer = TI.make_inference_fn(p9_cfg, dev)
+        reqs = {"small": small_req, "center": center_req}
+        np.savez(os.path.join(root, "requests.npz"),
+                 **{f"{name}_{k}": v for name, r in reqs.items()
+                    for k, v in zip(("image", "mask", "ref"), r)})
+        one = {}
+        with deterministic_cudnn():
+            TAC.launches = TAC.kbar_launches = 0
+            for name, (img, mask, ref) in reqs.items():
+                one[name] = [t.cpu().numpy() for t in infer(
+                    *models, img, mask, ref)]
+            one_launches = TAC.launches // len(reqs)
+            img, mask, ref = center_req
+            imgf = img.astype(np.float32) / 127.5 - 1.0
+            env_B = np.abs(infer(*models, imgf * (1.0 + DP_NUDGE), mask, ref
+                                 )[0].cpu().numpy()
+                           - infer(*models, imgf, mask, ref)[0].cpu().numpy())
+        t0 = time.perf_counter()
+        run_children(sp_infer_rank, [(r, f"file://{root}/rendezvous_a", root,
+                                      p9_cfg, epoch)
+                                     for r in range(P12_WORLD)],
+                     "phase 12 (a)")
+        a_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(P12_WORLD):
+            with open(os.path.join(root, f"sp_infer{r}.json")) as f:
+                ranks.append(json.load(f))
+            with np.load(os.path.join(root, f"sp_infer{r}.npz")) as f:
+                ranks[-1]["arrays"] = dict(f)
+        whole = {k: np.concatenate([x["arrays"][k] for x in ranks], 1)
+                 for k in ranks[0]["arrays"]}
+        d_small_B = float(np.abs(whole["small_B"] - one["small"][0]).max())
+        d_small_P = float(np.abs(whole["small_P"] - one["small"][1]).max())
+        d_center = np.abs(whole["center_B"] - one["center"][0])
+        coll = ranks[0]["small"]["collectives"]
+        n_coll = sum(c for c, _ in coll.values())
+        p50 = statistics.median(ranks[0]["ms"])
+        log(f"phase 12 (a) SP inference, {P12_WORLD} gloo ranks sharing one "
+            f"card, b1 at {s} px, phase 5's weights: small hole fake_B max|d| "
+            f"{d_small_B:.3e} (limit {E2E_TOL}), fake_P max|d| "
+            f"{d_small_P:.3e} (limit {SP_FAKE_P_TOL}); center hole fake_B "
+            f"max {d_center.max():.3e} mean {d_center.mean():.3e}, the "
+            f"one-process forward's own {DP_NUDGE:g} envelope max "
+            f"{env_B.max():.3e} mean {env_B.mean():.3e}; scan launches a "
+            f"rank {[x['small']['launches'] for x in ranks]} (one process "
+            f"{one_launches} a forward)")
+        log(f"phase 12 (a) a request's collectives on rank 0: {n_coll} "
+            f"calls, " + ", ".join(f"{k} {c} calls {b} bytes"
+                                   for k, (c, b) in sorted(coll.items()))
+            + f"; b1 p50 {p50:.2f} ms ({SP_TIMED} requests, "
+            f"{min(ranks[0]['ms']):.2f} to {max(ranks[0]['ms']):.2f}) against "
+            f"the plain session's {plain_p50:.2f} ms (phase 6): not a "
+            f"scaling figure, two ranks share the card and every exchange "
+            f"goes through the host; (a) took {a_s:.1f} s  [{card}]")
+        check(d_small_B <= E2E_TOL, "(a) SP fake_B at the small hole")
+        check(d_small_P <= SP_FAKE_P_TOL, "(a) SP fake_P at the small hole")
+        check(bool(np.isfinite(whole["center_B"]).all()),
+              "(a) SP fake_B must be finite")
+        check(d_center.max() <= ENVELOPE_K * max(env_B.max(), 1e-6)
+              and d_center.mean() <= ENVELOPE_K * max(env_B.mean(), 1e-2),
+              "(a) SP center-hole fake_B outside 8x the envelope")
+        check(all(x[name]["launches"] == {"scan_stream": one_launches,
+                                          "kbar_build": 0}
+                  for x in ranks for name in reqs),
+              "(a) scan launches a rank == the one-process forward's")
+        check(all(x["timed_launches"] == {"scan_stream":
+                                          SP_TIMED * one_launches,
+                                          "kbar_build": 0} for x in ranks),
+              "(a) the timed requests' scan launches a rank == the "
+              "one-process forward's")
+        figures["a"] = {"p50": p50, "collectives": n_coll,
+                        "bytes": {k: b for k, (_, b) in coll.items()}}
+        paths["sp_gloo_infer"] = {
+            "scan_stream": sum(x[name]["launches"]["scan_stream"]
+                               for x in ranks for name in reqs)
+            + sum(x["timed_launches"]["scan_stream"] for x in ranks),
+            "kbar_build": 0}
+        del models
+        torch.cuda.empty_cache()
+
+        # -- (b) the 1 x 2 grid's train step --
+        figures["b"], paths["sp_gloo_steps"] = sp_train_steps(
+            dev, card, s, small_batch, plain_ms, bn_size, root)
+
+        # -- (c) `_cli serve --sp` under torch.distributed.run --
+        result = os.path.join(root, "c")
+        img, mask, ref = small_req
+        np.savez(result + ".request.npz", image=img, mask=mask, ref=ref)
+        args = ["--sp", "--checkpoints_dir", p9_cfg.checkpoints_dir,
+                "--name", p9_cfg.name, "--which_epoch", str(epoch),
+                "--static_dir", os.path.join(root, "static")]
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(P12_WORLD), os.path.abspath(__file__),
+             "--phase12c", result, "--"] + args,
+            cwd=here, capture_output=True, text=True, timeout=CHILD_TIMEOUT_S,
+            env=dict(os.environ, PYTHONPATH=here))
+        c_s = time.perf_counter() - t0
+        for line in res.stdout.splitlines():
+            log(f"  (c) {line}")
+        check(res.returncode == 0, "phase 12 (c): torch.distributed.run "
+              f"exited {res.returncode}: {res.stderr[-3000:]}")
+        c = []
+        for r in range(P12_WORLD):
+            with open(f"{result}.rank{r}.json") as f:
+                c.append(json.load(f))
+        with np.load(result + ".answer.npz") as f:
+            sp_u8 = f["u8"]
+        with deterministic_cudnn():
+            plain = InferenceSession(p9_cfg, epoch, device=dev)
+            plain_u8 = plain.run(img, mask, ref)
+            plain.close()
+        diff = np.abs(sp_u8.astype(np.int16) - plain_u8.astype(np.int16))
+        same = float((diff == 0).mean())
+        log(f"phase 12 (c) _cli serve --sp under torch.distributed.run "
+            f"({P12_WORLD} gloo ranks): POST /getImage -> "
+            f"{c[0]['post_status']} {c[0]['location']} in "
+            f"{c[0]['post_ms']:.1f} ms, GET /result "
+            f"{c[0]['result_page']}, result image {c[0]['result_image']}; "
+            f"the sp session's uint8 answer against the plain session's at "
+            f"the small hole: max |d| {diff.max()} level(s), {same:.4%} "
+            f"equal; calls rank 0 {c[0]['calls']}, follower {c[1]['calls']};"
+            f" grids {c[0]['grid']} / {c[1]['grid']}; both left the group: "
+            f"{[x['group_left'] for x in c]}; {c_s:.1f} s  [{card}]")
+        check(c[0]["post_status"] == 302 and c[0]["location"] == "/result",
+              "(c) POST /getImage -> 302 /result")
+        check(c[0]["result_page"] == ["200 OK", True]
+              and c[0]["result_image"] == [s, s],
+              "(c) /result shows the result image")
+        check(diff.max() <= 1 and same >= 0.999,
+              "(c) sp answer within 1 level of the plain session's")
+        check(c[1]["calls"] == c[0]["calls"] >= 3
+              and c[0]["grid"] == [1, P12_WORLD, 0, 0]
+              and c[1]["grid"] == [1, P12_WORLD, 0, 1]
+              and all(x["group_left"] for x in c),
+              "(c) the follower runs every call and leaves cleanly")
+        check(all(x["launches"] == {"scan_stream": c[0]["calls"],
+                                    "kbar_build": 0} for x in c),
+              "(c) one scan launch a call on each rank")
+        paths["sp_cli_serve"] = {k: sum(x["launches"][k] for x in c)
+                                 for k in ("scan_stream", "kbar_build")}
+
+        # -- (d) a group of one over NCCL --
+        dist.init_process_group("nccl", init_method=f"file://{root}/rdv_d",
+                                world_size=1, rank=0)
+        # each call's launches go to its path alone: the counts are zeroed
+        # just before the call and read just after it
+        launched = {name: {"scan_stream": 0, "kbar_build": 0}
+                    for name in ("plain", "sp")}
+
+        def counted(name, fn, *args):
+            TAC.launches = TAC.kbar_launches = 0
+            out = fn(*args)
+            launched[name]["scan_stream"] += TAC.launches
+            launched[name]["kbar_build"] += TAC.kbar_launches
+            return out
+
+        try:
+            models = CheckpointManager(p9_cfg).restore_models(epoch, dev)
+            grid = spatial.make_sp_group()
+            infers = {"plain": infer,
+                      "sp": spatial.make_sp_inference_fn(p9_cfg, dev, grid)}
+            img, mask, ref = small_req
+            with deterministic_cudnn():
+                same_infer = all(
+                    torch.equal(a, b) for a, b in zip(
+                        *(counted(name, fn, *models, img, mask, ref)
+                          for name, fn in infers.items())))
+            timed = {"plain": [], "sp": []}
+            for i in range(2 * SP_TIMED):       # in turns
+                name = ("plain", "sp")[i % 2]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                counted(name, infers[name], *models, img, mask, ref)
+                torch.cuda.synchronize()
+                timed[name].append((time.perf_counter() - t0) * 1e3)
+            del models
+            cfg = Config(batch_size=TRAIN_BATCH)
+            one_grid = spatial.make_dp_sp_groups(1, 1)
+            steps = {"plain": TI.make_train_step(cfg, dev),
+                     "sp": spatial.make_dp_sp_train_step(cfg, dev, one_grid)}
+            states, outs, step_ms = {}, {}, {"plain": [], "sp": []}
+            with deterministic_cudnn():
+                for name, step in steps.items():
+                    states[name] = TI.create_state(
+                        cfg, torch.Generator().manual_seed(cfg.seed), dev)
+                    _, m = counted(name, step, states[name], small_batch)
+                    outs[name] = {k: v.item() for k, v in m.items()}
+            same_step = outs["plain"] == outs["sp"] and all(
+                torch.equal(p, q) for n in ("G", "P", "D", "F")
+                for p, q in zip(getattr(states["plain"], n).parameters(),
+                                getattr(states["sp"], n).parameters()))
+            for i in range(6):                   # in turns
+                name = ("plain", "sp", "sp", "plain", "plain", "sp")[i]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                counted(name, steps[name], states[name], small_batch)
+                torch.cuda.synchronize()
+                step_ms[name].append((time.perf_counter() - t0) * 1e3)
+            del states
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        ratio_req = (statistics.median(timed["sp"])
+                     / statistics.median(timed["plain"]))
+        ratio_step = (statistics.median(step_ms["sp"])
+                      / statistics.median(step_ms["plain"]))
+        log(f"phase 12 (d) a group of one over NCCL (sp_devices 1 in the SP "
+            f"builders): inference bit for bit with the plain path "
+            f"{same_infer}, train step (losses and parameters) bit for bit "
+            f"{same_step}; b1 request {statistics.median(timed['sp']):.2f} "
+            f"against {statistics.median(timed['plain']):.2f} ms "
+            f"({ratio_req:.3f}x), step {statistics.median(step_ms['sp']):.1f}"
+            f" against {statistics.median(step_ms['plain']):.1f} ms "
+            f"({ratio_step:.3f}x); launches of the SP builders' "
+            f"{1 + SP_TIMED} requests and 4 steps {launched['sp']}, the "
+            f"plain path's same calls {launched['plain']}  [{card}]")
+        check(same_infer, "(d) SP inference at one rank == the plain path")
+        check(same_step, "(d) SP train step at one rank == the plain step")
+        check(launched["sp"] == launched["plain"]
+              and launched["sp"]["kbar_build"] > 0,
+              "(d) the SP builders' launches == the plain path's")
+        paths["sp_nccl_one"] = launched["sp"]
+        figures["d"] = {"request_ratio": ratio_req, "step_ratio": ratio_step}
+        return {"paths": paths, "figures": figures}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -2583,10 +3322,20 @@ def main() -> int:
                         small)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 12: spatial partitioning, 256 px, full width ---------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    host = lambda t: t.cpu().numpy()
+    p12 = spatial_partitioning(
+        dev, card, p9_cfg, TRAIN_STEPS, (host(gt), small, host(ref)),
+        (host(gt), center(), host(ref)), small_batch, steady, phase6["p50"])
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
     # `launches` sums the main paths (serving, the train step, the trainer,
     # evaluate, phase 8's bf16 / remat / grad_accum paths, phase 9's
-    # serving program, phase 10's int8 and packed paths and phase 11's
-    # data-parallel paths, each rank's launches counted); the
+    # serving program, phase 10's int8 and packed paths, phase 11's
+    # data-parallel paths and phase 12's spatially partitioned ones, each
+    # rank's launches counted); the
     # times are those at B=8, N=1024, the shapes a 256 px train step gives
     # both: `ms` a launch of 20 back to back, `single_launch_ms` the median
     # of single launches, each between its own pair of events.  `n4096`
@@ -2598,7 +3347,8 @@ def main() -> int:
                             "evaluate": program_launches["evaluate"][name],
                             **{path: n[name]
                                for paths in (p8["paths"], p9,
-                                             p10["paths"], p11["paths"])
+                                             p10["paths"], p11["paths"],
+                                             p12["paths"])
                                for path, n in paths.items()}}
     n4096 = lambda name: {
         f"B{b}": {k: t[name][k] for k in ("ms", "single_ms", "plain_ms",
@@ -2636,4 +3386,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase11b"]:     # phase 11 (b)'s rank
         sys.exit(dp_cli_child(sys.argv[2], sys.argv[4:]))
+    if sys.argv[1:2] == ["--phase12c"]:     # phase 12 (c)'s ranks
+        sys.exit(sp_cli_child(sys.argv[2], sys.argv[4:]))
     sys.exit(main())

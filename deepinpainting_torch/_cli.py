@@ -4,12 +4,14 @@ deepinpainting_tpu/_cli.py::train, evaluate):
     python -m deepinpainting_torch._cli train --dataroot D --maskroot M \
         --refroot R [--validroot V] [--device cpu] [--<any Config field> V]
     python -m torch.distributed.run --standalone --nproc_per_node N \
-        -m deepinpainting_torch._cli train --multihost ...
+        -m deepinpainting_torch._cli train --multihost [--sp_devices K] ...
     python -m deepinpainting_torch._cli evaluate --dataroot D --maskroot M \
         --name N --which_epoch E [--save_dir S] [--quant int8] [--device cpu]
     python -m deepinpainting_torch._cli serve [--which_epoch E | \
         --random_weights | --from_export DIR] [--max_batch 8] \
         [--quant int8] [--device cpu]
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m deepinpainting_torch._cli serve --sp ...
     python -m deepinpainting_torch._cli export --out DIR \
         [--which_epoch E | --random_weights] [--batches 1,8] [--quant int8] \
         [--device cpu]
@@ -246,8 +248,10 @@ def serve(argv=None):
     ap.add_argument("--batch_wait_ms", type=float, default=2.0,
                     help="max straggler wait when coalescing")
     ap.add_argument("--sp", action="store_true",
-                    help="spread each request over several devices (not "
-                         "ported yet)")
+                    help="spread each request's rows over the ranks that "
+                         "torch.distributed.run starts (parallel/"
+                         "spatial.py): rank 0 serves, the others follow; "
+                         "one rank (no launcher) serves plainly")
     ap.add_argument("--quant", default="", choices=["", "none", "int8"],
                     help="override the checkpoint config's quant mode "
                          "(int8: dynamic int8 convs, ops/quant.py)")
@@ -270,21 +274,44 @@ def serve(argv=None):
 
     from wsgiref.simple_server import make_server
 
-    from .serve.app import ThreadingWSGIServer, make_app
+    import torch.distributed as dist
+
+    from .serve.app import InferenceSession, ThreadingWSGIServer, make_app
 
     cfg = _serving_config(args)
     epoch = args.which_epoch
     if epoch is None and not args.random_weights:
         epoch = 46      # the reference's default
-    app = make_app(cfg, epoch, args.static_dir or None,
-                   max_batch=args.max_batch,
-                   batch_wait_ms=args.batch_wait_ms, sp=args.sp,
-                   from_export=args.from_export or None, device=args.device)
-    print(f"serving on http://{args.host}:{args.port}"
-          + (f" (coalescing up to {args.max_batch} requests)"
-             if args.max_batch > 1 else ""), flush=True)
-    make_server(args.host, args.port, app,
-                server_class=ThreadingWSGIServer).serve_forever()
+    device = args.device
+    joined = args.sp and int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if joined:
+        # started by torch.distributed.run: one request's rows over the
+        # ranks (nccl on the card, gloo with --device cpu)
+        from .parallel.mesh import init_distributed
+        device = init_distributed(args.device)
+    try:
+        if args.sp and dist.is_initialized() and dist.get_rank() != 0:
+            InferenceSession(cfg, epoch, sp=True, device=device).follow()
+            return
+        app = make_app(cfg, epoch, args.static_dir or None,
+                       max_batch=args.max_batch,
+                       batch_wait_ms=args.batch_wait_ms, sp=args.sp,
+                       from_export=args.from_export or None, device=device)
+        try:
+            print(f"serving on http://{args.host}:{args.port}"
+                  + (f" (coalescing up to {args.max_batch} requests)"
+                     if args.max_batch > 1 else "")
+                  + (f" (each request over {dist.get_world_size()} ranks)"
+                     if app.session.grid is not None else ""), flush=True)
+            make_server(args.host, args.port, app,
+                        server_class=ThreadingWSGIServer).serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            app.session.close()       # releases an sp session's followers
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 COMMANDS = {"train": train, "evaluate": evaluate, "export": export,

@@ -11,6 +11,14 @@ runs the eval step on its rows of every padded global batch, the
 per-image metrics (and, for grids, the images) are gathered in rank order
 as host arrays, and the result is the same on every rank and the same as
 one process's on the same images.  Rank 0 alone prints and writes grids.
+
+Spatially partitioned (cfg.sp_devices > 1 in a group; one process
+evaluates whole images whatever sp_devices says, as the JAX package's
+evaluator does): the ranks form the data x sp grid (parallel/spatial.py),
+a rank takes its data group's rows and its slab of their rows, and the
+eval step computes PSNR and SSIM on the gathered images (SSIM's windows
+cross the slabs); the per-image metrics are gathered from the ranks of
+slab 0.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import torch
 from ..config import Config
 from ..data.iterator import BatchIterator, device_batches
 from ..device import DeviceLike, resolve_device
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 from ..parallel.collectives import all_gather_host
 from ..utils import imaging
 
@@ -52,13 +60,27 @@ def evaluate(cfg: Config, state, dataset, *, max_images: int = 500,
     the host only when `save_dir` asks for grids."""
     dev = resolve_device(device)
     group = mesh.default_group()
-    eval_step = mesh.make_dp_eval_step(cfg, dev, group)
+    grid = None
     rank, rows, gather = 0, None, (lambda a: a)
     if group is not None:
         rank = torch.distributed.get_rank(group)
+        world = torch.distributed.get_world_size(group)
+        data_index, n_data, n_sp = rank, world, 1
+        if cfg.sp_devices > 1:
+            grid = spatial.make_dp_sp_groups(*mesh.grid_shape(
+                cfg.batch_size, world, cfg.sp_devices))
+            data_index, n_data, n_sp = grid.data_index, grid.n_data, \
+                grid.n_sp
         rows = mesh.row_index(mesh.process_batch_rows(
-            cfg.batch_size, rank, torch.distributed.get_world_size(group)))
-        gather = lambda a: all_gather_host(a, group)
+            cfg.batch_size, data_index, n_data))
+
+        def gather(a):
+            # in rank order d * n_sp + s; the ranks of an sp group agree,
+            # so slab 0's ranks give each data group's rows once
+            parts = all_gather_host(a, group).reshape(n_data, n_sp, -1,
+                                                      *a.shape[1:])
+            return parts[:, 0].reshape(-1, *a.shape[1:])
+    eval_step = mesh.make_dp_eval_step(cfg, dev, grid or group)
     verbose = verbose and rank == 0
     it = BatchIterator(dataset, cfg.batch_size, shuffle=False,
                        drop_last=False, workers=cfg.data_workers)
@@ -72,6 +94,8 @@ def evaluate(cfg: Config, state, dataset, *, max_images: int = 500,
                                n_batches)
     if rows is not None:           # this rank's rows of each global batch
         batches = ({k: v[rows] for k, v in b.items()} for b in batches)
+    if grid is not None:           # and its slab of their rows
+        batches = (spatial.slab(b, grid) for b in batches)
     for batch in device_batches(batches, dev):
         out = eval_step(state, batch)
         psnr_v, ssim_v = gather(torch.stack([out["psnr"], out["ssim"]], 1

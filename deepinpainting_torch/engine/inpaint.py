@@ -39,7 +39,22 @@ Data flow, as the JAX package's:
                and BatchNorm moments are the global batch's
                (parallel/collectives.py), whose gradients are averaged over
                the ranks before each phase's update, and whose metrics are
-               the global means.
+               the global means.  A Grid (parallel/spatial.py) in its place
+               adds spatial partitioning: the rank holds a slab of rows of
+               its data group's images, and so do the steps' and the
+               inference function's inputs and fake_B / fake_P.
+  the sum    : under spatial partitioning every rank's loss is the whole
+               loss of its data group's rows, the same on each rank of its
+               sp group: the L1 means are over every slab (all-reduced),
+               and what runs on gathered images (the attention level and
+               InnerCos, VGG, netD and netF) is whole on every rank.  The
+               collectives' backward passes take the step's objective as
+               the sum of every rank's loss, n_sp times the data groups'
+               losses, so the parameter gradients are averaged over the
+               whole grid, data x sp, in the one flat all-reduce a phase:
+               summed over sp that counts the replicated work once, not
+               n_sp times, and averaged over data as without the spatial
+               axis.
 
 The public functions take and return the JAX layout (NHWC images, [B,H,W]
 masks) so the two packages compare like with like; images go to NCHW once
@@ -64,9 +79,11 @@ from ..models.unet_ipsr import UnetGeneratorIPSR
 from ..models.vgg16 import Vgg16
 from ..ops import masks as M
 from ..ops.attention import check_impl
-from ..ops.convs import (INIT_TYPES, NORMS, InstanceNorm, conv_modes,
-                         frozen_running_stats, init_weight_)
-from ..parallel.collectives import all_reduce_mean, use_group
+from ..ops.convs import (INIT_TYPES, NORMS, InstanceNorm, check_spatial_modes,
+                         conv_modes, frozen_running_stats, init_weight_,
+                         modes_of)
+from ..parallel.collectives import (all_reduce_mean, as_grid, full_rows,
+                                    own_rows, replicated, use_grid)
 from .state import TrainState, create_train_state
 
 
@@ -271,6 +288,25 @@ def prepare_masks(cfg: Config, mask: torch.Tensor
     return fmask, flag
 
 
+def _masks(cfg: Config, mask: torch.Tensor):
+    """(the resolved mask, feat_mask, flag) of an input mask.  On a slab
+    (spatial partitioning) the mask is resolved and its pyramid built on
+    the gathered mask (small: H*W f32 a sample), and the resolved mask
+    comes back as this rank's rows."""
+    full = resolve_mask(cfg, full_rows(normalize_mask(mask), dim=1))
+    fmask, flag = prepare_masks(cfg, full)
+    return own_rows(full, dim=1), fmask, flag
+
+
+def _check_grid(cfg: Config, group):
+    """The Grid of `group` (parallel/collectives.py::as_grid), after
+    refusing the conv modes that do not run on slabs."""
+    grid = as_grid(group)
+    if grid is not None and grid.n_sp > 1:
+        check_spatial_modes(modes_of(cfg))
+    return grid
+
+
 def resolve_mask(cfg: Config, mask: torch.Tensor) -> torch.Tensor:
     """'center' ignores the input mask and uses the fixed center square;
     'random' uses it as it is."""
@@ -321,7 +357,7 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     return x.to(device)
 
 
-def _inference_body(cfg: Config, dev: torch.device):
+def _inference_body(cfg: Config, dev: torch.device, grid=None):
     """The body of the inference function, with no grad-mode context of
     its own."""
     check_config(cfg)
@@ -329,14 +365,13 @@ def _inference_body(cfg: Config, dev: torch.device):
     dt = compute_dtype(cfg)
 
     def infer(G, P, vgg, gt, mask, ref):
-        with conv_modes(cfg):
+        with conv_modes(cfg), use_grid(grid):
             return _infer(G, P, vgg, gt, mask, ref)
 
     def _infer(G, P, vgg, gt, mask, ref):
         gt = normalize_image(_as_tensor(gt, dev)).permute(0, 3, 1, 2)
         ref = normalize_image(_as_tensor(ref, dev)).permute(0, 3, 1, 2)
-        mask = resolve_mask(cfg, normalize_mask(_as_tensor(mask, dev)))
-        _, flag = prepare_masks(cfg, mask)
+        mask, _, flag = _masks(cfg, _as_tensor(mask, dev))
         # inference only: VGG runs in the compute dtype too
         ref_feat = vgg(ref.to(dt)).relu4_3
         fwd = two_stage_forward(G, P, gt, mask, ref_feat, flag, impl,
@@ -347,13 +382,16 @@ def _inference_body(cfg: Config, dev: torch.device):
     return infer
 
 
-def make_inference_fn(cfg: Config, device: DeviceLike = None):
+def make_inference_fn(cfg: Config, device: DeviceLike = None, group=None):
     """infer(G, P, vgg, gt, mask, ref) -> (fake_B, fake_P), NHWC f32 on
     `device`.  gt/ref: [B,H,W,3] uint8 (or [-1,1] f32), numpy or tensor;
     mask [B,H,W] (uint8 0/1, or f32).  The networks must already be on
-    `device` and in eval mode (init_params returns them so)."""
+    `device` and in eval mode (init_params returns them so).  With a Grid
+    (parallel/spatial.py::make_sp_inference_fn) gt, mask and ref are this
+    rank's slabs of rows, and so are fake_B and fake_P."""
+    dev = resolve_device(device)
     return torch.inference_mode()(
-        _inference_body(cfg, resolve_device(device)))
+        _inference_body(cfg, dev, _check_grid(cfg, group)))
 
 
 def to_uint8(x: torch.Tensor) -> torch.Tensor:
@@ -362,24 +400,27 @@ def to_uint8(x: torch.Tensor) -> torch.Tensor:
                        ).to(torch.uint8)
 
 
-def serving_body(cfg: Config, device: DeviceLike = None):
+def serving_body(cfg: Config, device: DeviceLike = None, group=None):
     """The body of make_serving_fn, with no grad-mode context of its own:
     make_serving_fn runs it under inference_mode, and
     engine/export_model.py traces it under no_grad."""
-    infer = _inference_body(cfg, resolve_device(device))
+    grid = _check_grid(cfg, group)
+    infer = _inference_body(cfg, resolve_device(device), grid)
 
     def serve_fn(G, P, vgg, gt, mask, ref):
         fake_B, _ = infer(G, P, vgg, gt, mask, ref)
-        return to_uint8(fake_B)
+        with use_grid(grid):
+            return full_rows(to_uint8(fake_B), dim=1)
 
     return serve_fn
 
 
-def make_serving_fn(cfg: Config, device: DeviceLike = None):
+def make_serving_fn(cfg: Config, device: DeviceLike = None, group=None):
     """serve(G, P, vgg, gt, mask, ref) -> uint8 [B,H,W,3] on `device`;
     the quantization runs on the device, so 1 byte/px crosses to the
-    host."""
-    return torch.inference_mode()(serving_body(cfg, device))
+    host.  With a Grid the inputs are this rank's slabs and the uint8
+    image comes back whole (gathered) on every rank."""
+    return torch.inference_mode()(serving_body(cfg, device, group))
 
 
 # ---------------------------------------------------------------------------
@@ -411,8 +452,7 @@ def _batch_inputs(cfg: Config, batch, dev: torch.device):
     feat_mask and flag."""
     gt = normalize_image(_as_tensor(batch["image"], dev)).permute(0, 3, 1, 2)
     ref = normalize_image(_as_tensor(batch["ref"], dev)).permute(0, 3, 1, 2)
-    mask = resolve_mask(cfg, normalize_mask(_as_tensor(batch["mask"], dev)))
-    fmask, flag = prepare_masks(cfg, mask)
+    mask, fmask, flag = _masks(cfg, _as_tensor(batch["mask"], dev))
     return gt, ref, mask, fmask, flag
 
 
@@ -459,7 +499,8 @@ def make_train_step(cfg: Config, device: DeviceLike = None, group=None):
     optimisation step of all four networks, D and F first, then G and P
     against the updated discriminators.  With a torch.distributed `group`
     the step is one rank's share of the step on the global batch (batch
-    holds the rank's rows; parallel/mesh.py::make_dp_train_step).
+    holds the rank's rows; parallel/mesh.py::make_dp_train_step); with a
+    Grid, its rows' slab (parallel/spatial.py::make_dp_sp_train_step).
 
     batch: {'image', 'ref'}: [B,H,W,3] uint8 (or [-1,1] f32), 'mask':
     [B,H,W] (uint8 0/1, or f32), numpy or tensors.  `generator` (on
@@ -476,12 +517,14 @@ def make_train_step(cfg: Config, device: DeviceLike = None, group=None):
     check_train_config(cfg)
     impl = check_impl(cfg.attention_impl)
     dt = compute_dtype(cfg)
+    grid = _check_grid(cfg, group)
     if cfg.grad_accum > 1:
-        return _make_accum_train_step(cfg, dev, impl, dt, group)
+        return _make_accum_train_step(cfg, dev, impl, dt, grid)
+    world = None if grid is None else grid.world
 
     def train_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
-        with conv_modes(cfg), use_group(group):
+        with conv_modes(cfg), use_grid(grid):
             return _train_step(state, batch, generator)
 
     def _train_step(state: TrainState, batch,
@@ -509,7 +552,7 @@ def make_train_step(cfg: Config, device: DeviceLike = None, group=None):
         params_D, params_F = list(D.parameters()), list(F.parameters())
         # autograd.grad frees the D-phase graph, so the in-place optimiser
         # steps below invalidate no tensor saved for a later backward.
-        grads = _mean_over(group, torch.autograd.grad(
+        grads = _mean_over(world, torch.autograd.grad(
             0.5 * loss_D_img + 0.5 * loss_F_feat, params_D + params_F))
         _apply_grads(state.opt_D, params_D, grads[:len(params_D)])
         _apply_grads(state.opt_F, params_F, grads[len(params_D):])
@@ -518,7 +561,7 @@ def make_train_step(cfg: Config, device: DeviceLike = None, group=None):
         loss_G, loss_G_GAN, loss_G_L1, cos = _g_losses(
             cfg, D, F, fwd, gt, fake_feat, vgg_gt, fmask)
         params_G, params_P = list(G.parameters()), list(P.parameters())
-        grads = _mean_over(group, torch.autograd.grad(
+        grads = _mean_over(world, torch.autograd.grad(
             loss_G, params_G + params_P))
         _apply_grads(state.opt_G, params_G, grads[:len(params_G)])
         _apply_grads(state.opt_P, params_P, grads[len(params_G):])
@@ -526,7 +569,7 @@ def make_train_step(cfg: Config, device: DeviceLike = None, group=None):
         state.step += 1
         metrics = {"G_GAN": loss_G_GAN, "G_L1": loss_G_L1, "D": loss_D_img,
                    "F": loss_F_feat, "cosis": cos, "loss": loss_G_L1}
-        return state, _global_metrics(group, metrics)
+        return state, _global_metrics(world, metrics)
 
     return train_step
 
@@ -554,7 +597,7 @@ def _accumulate(acc, grads):
 
 
 def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
-                           dt: torch.dtype, group):
+                           dt: torch.dtype, grid):
     """The gradient-accumulated train step (cfg.grad_accum = k > 1), as the
     JAX package's _make_accum_train_step states it: the batch splits into
     k microbatches, and only one microbatch's activations live at a time.
@@ -580,10 +623,11 @@ def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
     and BatchNorm moments of each microbatch are the global microbatch's.
     """
     k = cfg.grad_accum
+    world = None if grid is None else grid.world
 
     def train_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
-        with conv_modes(cfg), use_group(group):
+        with conv_modes(cfg), use_grid(grid):
             return _train_step(state, batch, generator)
 
     def _train_step(state: TrainState, batch,
@@ -619,7 +663,7 @@ def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
             loss_F_feat = loss_F_feat + l_F.detach()
         for g in acc:
             g.div_(k)
-        acc = _mean_over(group, acc)
+        acc = _mean_over(world, acc)
         _apply_grads(state.opt_D, params_D, acc[:len(params_D)])
         _apply_grads(state.opt_F, params_F, acc[len(params_D):])
 
@@ -643,7 +687,7 @@ def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
             sums = [s + v.detach() for s, v in zip(sums, parts)]
         for g in acc:
             g.div_(k)
-        acc = _mean_over(group, acc)
+        acc = _mean_over(world, acc)
         _apply_grads(state.opt_G, params_G, acc[:len(params_G)])
         _apply_grads(state.opt_P, params_P, acc[len(params_G):])
 
@@ -652,7 +696,7 @@ def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
         metrics = {"G_GAN": loss_G_GAN, "G_L1": loss_G_L1,
                    "D": loss_D_img / k, "F": loss_F_feat / k, "cosis": cos,
                    "loss": loss_G_L1}
-        return state, _global_metrics(group, metrics)
+        return state, _global_metrics(world, metrics)
 
     return train_step
 
@@ -680,17 +724,21 @@ def make_eval_step(cfg: Config, device: DeviceLike = None, group=None):
     the card, no kbar.  With a torch.distributed `group` (parallel/mesh.py
     ::make_dp_eval_step) batch holds the rank's rows: the images and the
     per-image metrics are the rank's, loss_ipsr and loss_valid the global
-    batch's.
+    batch's.  With a Grid (parallel/spatial.py::make_dp_sp_eval_step) the
+    batch holds its rows' slab, and the images come back whole (gathered:
+    SSIM's windows cross the slabs), the same on each rank of the sp group.
     """
     from ..utils.metrics import psnr, ssim
     dev = resolve_device(device)
     check_config(cfg)
     impl = check_impl(cfg.attention_impl)
     dt = compute_dtype(cfg)
+    grid = _check_grid(cfg, group)
+    world = None if grid is None else grid.world
 
     @torch.inference_mode()
     def eval_step(state, batch) -> Dict[str, object]:
-        with use_group(group):
+        with use_grid(grid):
             return _eval_step(state, batch)
 
     def _eval_step(state, batch) -> Dict[str, object]:
@@ -703,27 +751,29 @@ def make_eval_step(cfg: Config, device: DeviceLike = None, group=None):
                                  ).permute(0, 3, 1, 2)
             ref = normalize_image(_as_tensor(batch["ref"], dev)
                                   ).permute(0, 3, 1, 2)
-            mask = resolve_mask(cfg, normalize_mask(
-                _as_tensor(batch["mask"], dev)))
-            _, flag = prepare_masks(cfg, mask)
+            mask, _, flag = _masks(cfg, _as_tensor(batch["mask"], dev))
             with conv_modes(cfg):
                 fwd = two_stage_forward(G, P, gt, mask, vgg(ref).relu4_3,
                                         flag, impl, dtype=dt)
         finally:
             G.train(modes[0])
             P.train(modes[1])
+        fake_B, fake_P, known, gt, ref = (
+            full_rows(t) for t in (fwd.fake_B, fwd.fake_P, fwd.known, gt,
+                                   ref))
         nhwc = lambda t: t.permute(0, 2, 3, 1)
-        losses = _global_metrics(group, {
-            "loss_ipsr": ra_gan_loss(gt, fwd.fake_B, False, cfg.gan_type),
-            "loss_valid": (l1_loss(fwd.fake_B, gt)
-                           + l1_loss(fwd.fake_P, gt)) * cfg.lambda_A})
+        with replicated():
+            losses = _global_metrics(world, {
+                "loss_ipsr": ra_gan_loss(gt, fake_B, False, cfg.gan_type),
+                "loss_valid": (l1_loss(fake_B, gt)
+                               + l1_loss(fake_P, gt)) * cfg.lambda_A})
         return {
-            "fake_B": nhwc(fwd.fake_B), "fake_P": nhwc(fwd.fake_P),
+            "fake_B": nhwc(fake_B), "fake_P": nhwc(fake_P),
             **losses,
-            "psnr": psnr(gt, fwd.fake_B), "ssim": ssim(gt, fwd.fake_B),
-            "visuals": {"real_A": nhwc(fwd.known), "real_Ref": nhwc(ref),
-                        "fake_B": nhwc(fwd.fake_B),
-                        "fake_P": nhwc(fwd.fake_P), "real_B": nhwc(gt)},
+            "psnr": psnr(gt, fake_B), "ssim": ssim(gt, fake_B),
+            "visuals": {"real_A": nhwc(known), "real_Ref": nhwc(ref),
+                        "fake_B": nhwc(fake_B),
+                        "fake_P": nhwc(fake_P), "real_B": nhwc(gt)},
         }
 
     return eval_step

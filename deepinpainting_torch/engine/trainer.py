@@ -20,6 +20,13 @@ ones, so every rank takes the same decisions (the NaN guard, early
 stopping, the plateau schedule).  Rank 0 alone writes metrics, visuals,
 the config and checkpoints, as the JAX package's process 0 does; the
 grid shows the global batch's first image, which rank 0 holds.
+
+Spatially partitioned (cfg.sp_devices > 1, in a group; `_cli.py train
+--multihost --sp_devices k`): the ranks form the JAX package's data x sp
+grid (parallel/mesh.py::grid_shape, parallel/spatial.py), each decoding
+its data group's rows of every global batch and keeping its slab of their
+rows; the steps are the grid's, the dropout's stream is its data group's,
+and rank 0 of the world writes, as above.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch
 from ..config import Config
 from ..data.iterator import BatchIterator, device_batches
 from ..device import DeviceLike, resolve_device
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 from ..utils import imaging
 from ..utils.metrics import MetricsLogger
 from ..utils.profiling import trace
@@ -58,33 +65,41 @@ class Trainer:
     def __init__(self, cfg: Config, train_dataset, valid_dataset=None, *,
                  out_dir: Optional[str] = None, device: DeviceLike = None):
         self.device = resolve_device(device)
-        if cfg.sp_devices > 1:
-            raise NotImplementedError(
-                f"sp_devices={cfg.sp_devices} is not ported yet (the port "
-                "trains data-parallel only)")
         self.cfg = cfg
         self.train_dataset = train_dataset
         self.valid_dataset = valid_dataset
         self.out_dir = out_dir or os.path.join(cfg.checkpoints_dir, cfg.name)
         os.makedirs(self.out_dir, exist_ok=True)
         # a process group, if torch.distributed is initialized: this
-        # process is one rank of a data-parallel run
+        # process is one rank of a data-parallel run, or of a data x sp
+        # grid with sp_devices > 1
         self.group = mesh.default_group()
+        world = (1 if self.group is None
+                 else torch.distributed.get_world_size(self.group))
+        self.grid = None
+        if cfg.sp_devices > 1:
+            self.grid = spatial.make_dp_sp_groups(*mesh.grid_shape(
+                cfg.batch_size, world, cfg.sp_devices, cfg.grad_accum))
         self.rank, self._rows = 0, None
+        data_index = 0
         if self.group is not None:
             self.rank = torch.distributed.get_rank(self.group)
+            data_index, n_data = self.rank, world
+            if self.grid is not None:
+                data_index, n_data = self.grid.data_index, self.grid.n_data
             self._rows = mesh.process_batch_rows(
-                cfg.batch_size, self.rank,
-                torch.distributed.get_world_size(self.group), cfg.grad_accum)
+                cfg.batch_size, data_index, n_data, cfg.grad_accum)
         self.primary = self.rank == 0
         self.train_step = mesh.make_dp_train_step(cfg, self.device,
-                                                  self.group)
-        self.eval_step = mesh.make_dp_eval_step(cfg, self.device, self.group)
+                                                  self.grid or self.group)
+        self.eval_step = mesh.make_dp_eval_step(cfg, self.device,
+                                                self.grid or self.group)
         # dropout's stream: from its own seed, so it differs from the JAX
         # package's (parity runs keep use_dropout off, the default), and
-        # one a rank, so that the ranks' rows draw different masks
+        # one a data group, so that the groups' rows draw different masks
+        # and the ranks of an sp group draw the same whole-image mask
         self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed + 1 + (self.rank << 32))
+            cfg.seed + 1 + (data_index << 32))
         self.ckpt = CheckpointManager(cfg, async_save=True, group=self.group)
         self.logger = (MetricsLogger(self.out_dir) if self.primary
                        else _NullLogger())
@@ -118,6 +133,14 @@ class Trainer:
             state = self.ckpt.restore(ep, state, self.device)
         return mesh.replicate_state(state, self.group)
 
+    def _batches(self, it):
+        """The iterator's host batches on the device, each this rank's slab
+        of rows under a grid."""
+        batches = iter(it)
+        if self.grid is not None:
+            batches = (spatial.slab(b, self.grid) for b in batches)
+        return device_batches(batches, self.device)
+
     # -- epochs --------------------------------------------------------------
     def train_epoch(self, state: TrainState, epoch: int, total_steps: int):
         """One epoch; returns (state, mean train loss, total_steps), where
@@ -148,7 +171,7 @@ class Trainer:
                 self.logger.log_step(step_n, m, when=t_step)
             window.clear()
 
-        for batch in device_batches(iter(it), self.device):
+        for batch in self._batches(it):
             state, metrics = self.train_step(state, batch, self.generator)
             total_steps += cfg.batch_size
             window.append((total_steps, time.time(), metrics))
@@ -169,7 +192,7 @@ class Trainer:
                            shuffle=False, workers=self.cfg.data_workers,
                            rows=self._rows)
         losses = [self.eval_step(state, b)["loss_valid"]
-                  for b in device_batches(iter(it), self.device)]
+                  for b in self._batches(it)]
         if not losses:
             return float("nan")
         return float(np.mean(torch.stack(losses).cpu().numpy(),

@@ -14,7 +14,8 @@
     the two local sums, with autograd.  The outer means stay local, and the
     data-parallel step averages every rank's losses.
   * L1 terms: (L1(fake_B, gt) + L1(fake_P, gt)) * lambda_A, the sum taken
-    by the train step.
+    by the train step.  On slabs (spatial partitioning) the mean is the
+    whole image's, over every slab.
   * `inner_cos_loss`: MSE(feat * feat_mask * strength, vgg_gt_relu4_3), the
     target being the whole unmasked feature map.
 """
@@ -25,7 +26,8 @@ import torch
 
 import torch.distributed as dist
 
-from .parallel.collectives import all_reduce_sum, current_group
+from .parallel.collectives import (all_reduce_sum, current_group,
+                                   spatial_mean)
 
 
 def _mse(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -71,7 +73,7 @@ def ra_gan_loss(pred_fake: torch.Tensor, pred_real: torch.Tensor,
 
 
 def l1_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(a - b))
+    return spatial_mean(torch.abs(a - b))
 
 
 def inner_cos_loss(feat: torch.Tensor, feat_mask: torch.Tensor,

@@ -15,6 +15,12 @@ Layer attribute names follow the JAX package's flax scope names (`conv0`,
 `norm1`, `head`), so the weight bridge resolves each key by its path.  The
 convs are ops/convs.py's, so the conv modes reach them as they reach the
 JAX package's TorchConv (pack_small_cin rewrites netD's 3-channel conv0).
+
+Under spatial partitioning (parallel/spatial.py) both run whole on every
+rank: netD takes the gathered image (its k4 s1 tail gives heights, 31 and
+30 at 256 px, that split over no slab count; the JAX package keeps it
+batch-only under norm='batch' for the same reason), and netF takes VGG's
+features, which are whole already.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.convs import Conv2d, leaky_relu, make_norm
+from ..parallel.collectives import full_rows, replicated
 
 
 class NLayerDiscriminator(nn.Module):
@@ -48,11 +55,13 @@ class NLayerDiscriminator(nn.Module):
         self.head = Conv2d(cin, 1, 4, 1, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = leaky_relu(self.conv0(x), 0.2)
-        for n in range(1, self.n_layers + 1):
-            y = getattr(self, f"norm{n}")(getattr(self, f"conv{n}")(y))
-            y = leaky_relu(y, 0.2)
-        y = self.head(y)
+        x = full_rows(x)
+        with replicated():
+            y = leaky_relu(self.conv0(x), 0.2)
+            for n in range(1, self.n_layers + 1):
+                y = getattr(self, f"norm{n}")(getattr(self, f"conv{n}")(y))
+                y = leaky_relu(y, 0.2)
+            y = self.head(y)
         return torch.sigmoid(y) if self.use_sigmoid else y
 
 
@@ -68,6 +77,10 @@ class PFDiscriminator(nn.Module):
         self.conv2 = Conv2d(width, width, 4, 2, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with replicated():
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         # Three 4x4 s2 p1 convs need an 8x8 input to emit one patch; a
         # smaller map (configs under 64 px) is zero-padded at the bottom
         # and right up to that minimum, as the JAX package pads it.

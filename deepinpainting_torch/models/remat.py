@@ -14,12 +14,14 @@ here by hand:
     the recompute, and put back where the step left it afterwards;
   * a recomputed train-mode BatchNorm would move its running statistics a
     second time: the recompute runs under frozen_running_stats;
-  * the conv modes (ops/convs.py) and the process group of a
-    data-parallel step (parallel/collectives.py) are held per thread, and
-    autograd may run the backward, and with it the recompute, in a thread
-    of its own: the modes and the group in force when the level is called
-    are entered again for the recompute, which then takes the forward's
-    conv paths and the global batch's BatchNorm moments.
+  * the conv modes (ops/convs.py), the process group of a data-parallel
+    step and the spatial context of a spatially partitioned one
+    (parallel/collectives.py) are held per thread, and autograd may run
+    the backward, and with it the recompute, in a thread of its own: the
+    modes, the group and the spatial context in force when the level is
+    called are entered again for the recompute, which then takes the
+    forward's conv paths, the global batch's BatchNorm moments and the
+    same slabs and exchanges of rows.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.convs import current_modes, frozen_running_stats, use_modes
-from ..parallel.collectives import current_group, use_group
+from ..parallel.collectives import (current_group, current_spatial,
+                                    use_group, use_spatial)
 
 
 def mark_levels(outermost: nn.Module, remat: bool, depth: int) -> None:
@@ -50,7 +53,8 @@ def checkpoint_level(level: nn.Module, fn: Callable, x: torch.Tensor,
     `generator` is the dropout's (None: the device's default generator,
     which checkpoint itself replays)."""
     entry = None if generator is None else generator.get_state()
-    modes, group = current_modes(), current_group()
+    modes, group, spatial = current_modes(), current_group(), \
+        current_spatial()
     calls = 0
 
     def run(x):
@@ -58,14 +62,14 @@ def checkpoint_level(level: nn.Module, fn: Callable, x: torch.Tensor,
         calls += 1
         if calls == 1:
             return fn(x)
-        # the recompute: the same dropout draw, conv modes and group, no
-        # running-statistics move
+        # the recompute: the same dropout draw, conv modes, group and
+        # spatial context, no running-statistics move
         left = None if generator is None else generator.get_state()
         if generator is not None:
             generator.set_state(entry)
         try:
             with frozen_running_stats(level), use_modes(modes), \
-                    use_group(group):
+                    use_group(group), use_spatial(spatial):
                 return fn(x)
         finally:
             if generator is not None:

@@ -12,6 +12,12 @@ active in train mode only and draws from the generator passed to forward.
 With remat the `remat_depth` outermost levels (0 = all; the innermost is
 level num_downs - 1) are checkpointed under grad (models/remat.py).  Every
 layer computes in its input's dtype (ops/convs.py).
+
+Under spatial partitioning (parallel/spatial.py) a level runs on its
+slab of rows unless its k4 s2 down conv cannot (an odd slab, as the
+bottleneck's 1-row slabs): that level, and with it every level inside it,
+runs on the gathered image and hands back its slab, where the JAX package
+pins such a height to a batch-only sharding (constrain_unshardable_spatial).
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import torch.nn.functional as F
 
 from ..ops.convs import (Conv2d, ConvTranspose2d, Dropout, bilinear_resize,
                          leaky_relu, make_norm)
+from ..parallel.collectives import (full_rows, must_gather, own_rows,
+                                    replicated)
 from .remat import checkpoint_level, mark_levels
 
 
@@ -52,6 +60,11 @@ class UnetSkipBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if must_gather(x.shape[2], 2, 1):
+            full = full_rows(x)
+            with replicated():
+                y = self.forward(full, generator)
+            return own_rows(y)
         if self.remat and torch.is_grad_enabled():
             return checkpoint_level(
                 self, lambda t: self._forward(t, generator), x, generator)

@@ -23,6 +23,15 @@ only and draws from the generator passed to forward.  With remat the
 innermost is level num_downs and the attention level is 3.  Every layer
 computes in its input's dtype (ops/convs.py); the attention gets the
 reference feature in that dtype and computes in f32 inside.
+
+Under spatial partitioning (parallel/spatial.py) a level runs on its
+slab of rows, except the attention level, whose attention reads every
+position (the JAX package all-gathers its operands), and a level whose
+dilated k4 s2 conv cannot (a slab of fewer than 3 rows, or odd): such a
+level, and every level inside it, runs on the gathered image on every
+rank, hands back its slab, and its InnerCos taps whole.  So the scan (and
+in training kbar) runs on the whole [B, 8ngf, H/8, W/8] grid on every
+rank, as under the JAX package's SPMD.
 """
 
 from __future__ import annotations
@@ -36,6 +45,8 @@ import torch.nn.functional as F
 from ..ops.attention import ipsr_attention_batched
 from ..ops.convs import (Conv2d, ConvTranspose2d, Dropout, bilinear_resize,
                          leaky_relu, make_norm)
+from ..parallel.collectives import (current_spatial, full_rows, must_gather,
+                                    own_rows, replicated)
 from .remat import checkpoint_level, mark_levels
 
 
@@ -87,6 +98,13 @@ class UnetBlock3(nn.Module):
         """aux carries {'ref_feat': [B,C,h,w], 'flag': [B,h*w],
         'impl': attention_impl, 'generator': the dropout's}; returns
         (output, taps) with the InnerCos features."""
+        if not self.outermost and (
+                (self.with_attention and current_spatial() is not None)
+                or must_gather(x.shape[2], 2, 3)):
+            full = full_rows(x)
+            with replicated():
+                y, taps = self.forward(full, aux)
+            return own_rows(y), taps
         if self.remat and torch.is_grad_enabled():
             return checkpoint_level(self, lambda t: self._forward(t, aux), x,
                                     aux.get("generator"))

@@ -14,7 +14,10 @@ Inputs are [-1,1] images, not ImageNet-normalised; the extractor computes
 in their dtype (ops/convs.py: bf16 only where the inference function feeds
 it bf16, as the JAX package's does).  The extractor is
 frozen.  `forward(x, upto=3)` stops after relu3_3 (relu4_3 comes back
-None): the train step needs no more of the fake image.
+None): the train step needs no more of the fake image.  Under spatial
+partitioning (parallel/spatial.py) it takes the gathered image and runs
+whole on every rank, as the JAX package's SPMD runs it; its features
+come back whole.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.convs import Conv2d, he_normal_
+from ..parallel.collectives import full_rows, replicated
 
 
 class VggFeatures(NamedTuple):
@@ -70,14 +74,15 @@ class Vgg16(nn.Module):
         """upto < 4 computes the first `upto` slices only; the later
         entries are None."""
         feats = []
-        y = x
-        for si, convs in enumerate(SLICES):
-            if si >= upto:
-                feats.append(None)
-                continue
-            for name, _ in convs:
-                y = F.relu(getattr(self, name)(y))
-            if si < 3:
-                y = F.max_pool2d(y, 2)   # slices 1-3 end in their pool
-            feats.append(y)
+        y = full_rows(x)
+        with replicated():
+            for si, convs in enumerate(SLICES):
+                if si >= upto:
+                    feats.append(None)
+                    continue
+                for name, _ in convs:
+                    y = F.relu(getattr(self, name)(y))
+                if si < 3:
+                    y = F.max_pool2d(y, 2)   # slices 1-3 end in their pool
+                feats.append(y)
         return VggFeatures(*feats)

@@ -37,6 +37,23 @@ products, another order): small-Cin convs pack their taps into channels
 convs and small-Cout deconvs pack 2-4 output pixels into channels
 (`_conv2d_hpack2`, `_deconv_dpack4`).  The gates are the JAX package's,
 with its constants (module attributes, so tests can lower them).
+
+Spatial partitioning (parallel/spatial.py): in a sharded region
+(parallel/collectives.py::current_spatial) a rank holds a slab of rows of
+every activation.  A conv then takes its neighbours' rows (`halo_exchange`)
+and runs on the padded slab with no H padding of its own: for a conv of
+kernel k, stride s, padding p and dilation d, p rows above and
+(k-1)d - p - s + 1 below (netP's k4 s2 p1: 1 and 1; netG's k4 s2 p3 d2:
+3 and 2; k3 s1 p1: 1 and 1), for a transposed conv (k-1-p)//s input rows
+above and (p-1+s)//s below (k4 s2 p1 and k3 s1 p1: 1 and 1), the output
+cut to the slab's s*h rows.  A stride-s conv needs a slab height that s
+divides; the U-Nets gather the levels where it does not.  The instance
+norm sums each (N, C) over every slab (the JAX layer's two reductions),
+a train-mode BatchNorm over the whole grid, the dropout draws the whole
+image's mask and keeps its rows, and a bilinear resize runs on the
+gathered image.  The conv modes pad H symmetrically (the pack rewrites)
+or scale by a per-tensor maximum (int8), so no mode runs on slabs: a conv
+refuses them there.
 """
 
 from __future__ import annotations
@@ -50,7 +67,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel.collectives import all_reduce_sum, current_group
+from ..parallel.collectives import (all_reduce_sum, current_group,
+                                    current_spatial, full_rows,
+                                    halo_exchange, own_rows, replicated)
 from . import quant
 
 INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
@@ -60,10 +79,19 @@ NORMS = ("instance", "batch")
 def instance_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm2d(affine=True): biased variance over H, W per (N, C),
-    statistics in f32.  x: [N, C, H, W]."""
+    statistics in f32.  x: [N, C, H, W]; in a sharded region a slab, whose
+    sums are taken over every slab of the image."""
     xf = x.to(torch.float32)
-    mean = xf.mean(dim=(2, 3), keepdim=True)
-    var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+    sp = current_spatial()
+    if sp is None:
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+    else:
+        n = xf.shape[2] * xf.shape[3] * sp.size
+        mean = all_reduce_sum(xf.sum(dim=(2, 3), keepdim=True), sp.group) / n
+        var = all_reduce_sum((xf - mean).square().sum(dim=(2, 3),
+                                                     keepdim=True),
+                             sp.group) / n
     y = ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
     return y * weight.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]
 
@@ -120,11 +148,16 @@ def use_modes(modes: ConvModes):
         _MODES.modes = prev
 
 
+def modes_of(cfg) -> ConvModes:
+    """The conv modes a Config selects."""
+    return ConvModes(cfg.quant == "int8", bool(cfg.pack_small_cin),
+                     bool(cfg.pack_out))
+
+
 def conv_modes(cfg):
     """Enter every conv mode a Config selects (the JAX package's
     conv_modes)."""
-    return use_modes(ConvModes(cfg.quant == "int8", bool(cfg.pack_small_cin),
-                               bool(cfg.pack_out)))
+    return use_modes(modes_of(cfg))
 
 
 # ---- the pack rewrites (NCHW; weights in torch layout) ---------------------
@@ -242,6 +275,53 @@ def _with_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     return y if bias is None else y + _channels(bias, y.dtype)
 
 
+# ---- convs on a slab of rows (spatial partitioning) ------------------------
+
+def check_spatial_modes(modes: ConvModes) -> None:
+    """Refuse, by name, the conv modes that do not run on slabs."""
+    if modes != ConvModes():
+        on = [name for name, flag in (("quant='int8'", modes.int8),
+                                      ("pack_small_cin", modes.pack_small_cin),
+                                      ("pack_out", modes.pack_out)) if flag]
+        raise NotImplementedError(
+            f"{' and '.join(on)} do(es) not run under spatial partitioning "
+            "(sp_devices > 1): the pack rewrites pad H symmetrically and "
+            "int8 scales by the whole tensor's maximum")
+
+
+def _slab_conv2d(x, w, bias, stride, padding, dilation, sp):
+    """Conv2d of a slab (see the module docstring); bias None or in x's
+    dtype is fused, another is added after as Conv2d adds it."""
+    k, h = w.shape[2], x.shape[2]
+    above = padding[0]
+    below = (k - 1) * dilation[0] - above - stride[0] + 1
+    if h % stride[0] or below < 0:
+        raise ValueError(
+            f"a k{k} s{stride[0]} p{above} d{dilation[0]} conv cannot run "
+            f"on a slab of {h} rows under spatial partitioning (the slab "
+            "height must be a multiple of the stride)")
+    xh = halo_exchange(x, sp.group, sp.index, sp.size, above, below)
+    fused = bias if bias is None or bias.dtype == x.dtype else None
+    y = F.conv2d(xh, w, fused, stride, (0, padding[1]), dilation)
+    return y if fused is bias else _with_bias(y, bias)
+
+
+def _slab_conv_transpose2d(x, w, bias, stride, padding, sp):
+    """ConvTranspose2d of a slab: the padded slab's whole output, cut to
+    the stride * h rows this slab's inputs own."""
+    k, s, p = w.shape[2], stride[0], padding[0]
+    if k - 2 * p != s:
+        raise NotImplementedError(
+            f"a k{k} s{s} p{p} transposed conv does not map a slab to "
+            f"{s} times its rows; spatial partitioning runs k - 2p == s")
+    above, below = (k - 1 - p) // s, (p - 1 + s) // s
+    xh = halo_exchange(x, sp.group, sp.index, sp.size, above, below)
+    fused = bias if bias is None or bias.dtype == x.dtype else None
+    y = F.conv_transpose2d(xh, w, fused, stride, (0, padding[1]))
+    y = y.narrow(2, above * s + p, x.shape[2] * s)
+    return y if fused is bias else _with_bias(y, bias)
+
+
 class Conv2d(nn.Conv2d):
     """nn.Conv2d that computes in its input's dtype (see the module
     docstring) under the conv modes in force; on an f32 input with no mode
@@ -251,6 +331,11 @@ class Conv2d(nn.Conv2d):
         modes = current_modes()
         w = self.weight if x.dtype == self.weight.dtype \
             else self.weight.to(x.dtype)
+        sp = current_spatial()
+        if sp is not None:
+            check_spatial_modes(modes)
+            return _slab_conv2d(x, w, self.bias, self.stride, self.padding,
+                                self.dilation, sp)
         args = (self.stride[0], self.padding[0], self.dilation[0])
         if modes.int8 and quant.eligible(w.shape[1], w.shape[0]):
             return quant.conv2d_int8(x, w, self.bias, *args)
@@ -275,6 +360,11 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         modes = current_modes()
         w = self.weight if x.dtype == self.weight.dtype \
             else self.weight.to(x.dtype)
+        sp = current_spatial()
+        if sp is not None:
+            check_spatial_modes(modes)
+            return _slab_conv_transpose2d(x, w, self.bias, self.stride,
+                                          self.padding, sp)
         if modes.int8 and quant.eligible(w.shape[0], w.shape[1]):
             return quant.conv_transpose2d_int8(x, w, self.bias,
                                                self.stride[0],
@@ -311,14 +401,17 @@ class BatchNorm(nn.BatchNorm2d):
     all-reduced with autograd (two reductions, as the JAX layer's
     mean((x - mean)^2): a one-pass sum of squares loses digits to
     cancellation in f32).  The biased variance normalises, and the running
-    variance takes the unbiased one with the global count."""
+    variance takes the unbiased one with the global count.  In a sharded
+    region (spatial partitioning) the moments are those of the whole grid
+    of ranks, every row of every image of the global batch."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
         self.frozen = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        group = current_group()
+        sp = current_spatial()
+        group = current_group() if sp is None else sp.norm_group
         if self.training and group is not None:
             return self._global_forward(x, group)
         mean, var = self.running_mean, self.running_var
@@ -396,7 +489,9 @@ class Dropout(nn.Module):
     """Inverted dropout, active in train mode only: each element is kept
     with probability 1 - p and scaled by 1 / (1 - p).  The keep mask comes
     from `generator`, a torch.Generator on x's device (nn.Dropout takes
-    none); None draws from that device's default generator."""
+    none); None draws from that device's default generator.  On a slab
+    (spatial partitioning) it draws the whole image's mask, as one process
+    draws it, and keeps its rows."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
@@ -408,15 +503,28 @@ class Dropout(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=generator, device=x.device,
-                          dtype=torch.float32) >= self.p
+        sp = current_spatial()
+        shape = list(x.shape)
+        if sp is not None:
+            shape[2] *= sp.size
+        keep = own_rows(torch.rand(shape, generator=generator,
+                                   device=x.device, dtype=torch.float32)
+                        >= self.p)
         return x * keep.to(x.dtype) * (1.0 / (1.0 - self.p))
 
 
 def bilinear_resize(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """jax.image.resize(method='bilinear') on NCHW: half-pixel centres
     (align_corners=False) with a widened triangle kernel when shrinking
-    (antialias).  Used only where a skip connection's size mismatches."""
+    (antialias).  Used only where a skip connection's size mismatches.  On
+    a slab (spatial partitioning) `height` is the target slab's: the
+    resize runs on the gathered image and keeps this rank's rows."""
+    sp = current_spatial()
+    if sp is not None:
+        full = full_rows(x)
+        with replicated():
+            y = bilinear_resize(full, height * sp.size, width)
+        return own_rows(y)
     return F.interpolate(x, size=(height, width), mode="bilinear",
                          align_corners=False, antialias=True)
 

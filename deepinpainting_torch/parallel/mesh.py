@@ -20,6 +20,7 @@ engine's steps in the group.
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -108,6 +109,37 @@ def check_batch_divisible(batch_size: int, world: int,
             f"the number of processes")
 
 
+def grid_shape(batch_size: int, world: int, sp_devices: int,
+               grad_accum: int = 1) -> Tuple[int, int]:
+    """(n_data, n_sp) of a run of `world` ranks with Config.sp_devices, by
+    the JAX package's rules (engine/trainer.py there): sp_devices divides
+    the device count, and the data axis is gcd(batch_size, world /
+    sp_devices).  Where the gcd is smaller than world / sp_devices the JAX
+    package idles the devices it leaves out; a torch launcher starts every
+    rank, so the port refuses that world instead, by name.  Each global
+    batch (and with grad_accum k each microbatch) splits evenly over the
+    data groups."""
+    if sp_devices < 1 or world % sp_devices:
+        raise ValueError(f"sp_devices={sp_devices} must divide the device "
+                         f"count ({world})")
+    n_data = world // sp_devices
+    used = math.gcd(max(1, batch_size), n_data)
+    if used != n_data:
+        raise ValueError(
+            f"batch_size={batch_size} does not split over the {n_data} "
+            f"data-parallel groups that sp_devices={sp_devices} leaves of "
+            f"{world} ranks; the JAX package would use {used} of them and "
+            f"idle the rest: start {used * sp_devices} processes or change "
+            f"batch_size")
+    k = max(1, grad_accum)
+    if batch_size % (k * n_data):
+        raise ValueError(
+            f"batch_size={batch_size} does not split into grad_accum={k} "
+            f"microbatches over the {n_data} data-parallel group(s) of "
+            f"sp_devices={sp_devices}; change batch_size or grad_accum")
+    return n_data, sp_devices
+
+
 def process_batch_rows(batch_size: int, rank: int, world: int,
                        grad_accum: int = 1) -> Rows:
     """The rows of each global batch that rank `rank` of `world` holds.
@@ -165,18 +197,19 @@ def replicate_state(state, group: Optional[dist.ProcessGroup]):
     return state
 
 
-def make_dp_train_step(cfg: Config, device: DeviceLike,
-                       group: dist.ProcessGroup):
+def make_dp_train_step(cfg: Config, device: DeviceLike, group):
     """train_step(state, batch, generator=None) -> (state, metrics) for
     one rank of `group`: `batch` holds the rank's rows
     (process_batch_rows), `state` is replicated (replicate_state), and the
     step is the one-process step on the global batch.  `generator` feeds
-    the rank's dropout (engine/trainer.py seeds one a rank)."""
+    the rank's dropout (engine/trainer.py seeds one a rank).  A Grid in
+    place of the group is the data x sp step of
+    spatial.py::make_dp_sp_train_step (batch: the rank's slab)."""
     return make_train_step(cfg, device, group=group)
 
 
-def make_dp_eval_step(cfg: Config, device: DeviceLike,
-                      group: dist.ProcessGroup):
-    """eval_step(state, batch) for one rank of `group`: the outputs of the
-    rank's rows, and loss_valid / loss_ipsr of the global batch."""
+def make_dp_eval_step(cfg: Config, device: DeviceLike, group):
+    """eval_step(state, batch) for one rank of `group` (a process group, or
+    a Grid as make_dp_train_step takes it): the outputs of the rank's
+    rows, and loss_valid / loss_ipsr of the global batch."""
     return make_eval_step(cfg, device, group=group)

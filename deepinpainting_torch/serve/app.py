@@ -19,6 +19,15 @@ memory, or fresh from cfg.seed) or a loaded serving artifact
 uint8-out serving function (engine/inpaint.py::make_serving_fn).  With
 max_batch > 1 concurrent single requests coalesce into one batched call
 (serve/batcher.py).
+
+With sp=True in a torch.distributed group of more than one rank (`_cli.py
+serve --sp` under torch.distributed.run) one request's rows spread over
+every rank (parallel/spatial.py): rank 0 serves, and every other rank
+runs `follow()`, which takes each call's arrays by broadcast from rank 0,
+runs its slab of the sharded forward, and returns when rank 0's session
+closes.  Each rank holds rank 0's weights.  The uint8 result is gathered
+on every rank; rank 0 returns it.  With one rank, or outside any group,
+sp=True is the plain session, as the JAX package's is on one device.
 """
 
 from __future__ import annotations
@@ -36,12 +45,14 @@ from wsgiref.simple_server import WSGIServer, make_server
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from PIL import Image
 
 from ..config import Config
 from ..device import DeviceLike, resolve_device
 from ..engine.checkpoint import CheckpointManager
 from ..engine.inpaint import init_params, make_serving_fn
+from ..parallel import collectives, mesh, spatial
 
 _TEMPLATE_DIR = os.path.join(os.path.dirname(__file__), "templates")
 
@@ -61,13 +72,20 @@ def parse_multipart(content_type: str, body: bytes) -> Dict[str, bytes]:
     return fields
 
 
+# what rank 0 of an sp session broadcasts before a call's arrays
+_STOP, _RUN = 0, 1
+_WIRE_DTYPES = (torch.uint8, torch.float32)
+
+
 class InferenceSession:
     """state: Models(G, P, vgg) on `device` in eval mode, as init_params
     returns them (or, with serve_fn, what serve_fn takes).  With state None, `which_epoch` restores G, P and VGG of
     that epoch from the port's checkpoint under
     {cfg.checkpoints_dir}/{cfg.name} (CheckpointManager.restore_models),
-    and no epoch draws fresh weights from cfg.seed.  sp (spatial
-    partitioning of one request over several devices) is not ported."""
+    and no epoch draws fresh weights from cfg.seed.  sp: spread each
+    request's rows over the ranks of the torch.distributed group (see the
+    module docstring); every rank constructs the session, rank 0 serves
+    and the others call follow()."""
 
     def __init__(self, cfg: Config, which_epoch: Optional[int] = None, *,
                  state=None, serve_fn=None, max_batch: int = 1,
@@ -76,10 +94,6 @@ class InferenceSession:
         """serve_fn: a prebuilt (G, P, vgg, image, mask, ref) -> uint8
         call over `state`'s .G/.P/.vgg (from_export passes the loaded
         graph); None builds make_serving_fn."""
-        if sp:
-            raise NotImplementedError(
-                "sp=True (one request spread over several devices) is not "
-                "ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg.replace(is_train=False, mask_type="random",
                                batch_size=1)
@@ -90,7 +104,15 @@ class InferenceSession:
             gen = torch.Generator().manual_seed(self.cfg.seed)
             state = init_params(self.cfg, gen, self.device)
         self.state = state
-        self._infer = serve_fn or make_serving_fn(self.cfg, self.device)
+        group = mesh.default_group() if sp else None
+        self.grid = None
+        if group is not None and dist.get_world_size(group) > 1:
+            self.grid = spatial.make_sp_group(group)
+            collectives.broadcast_([t for net in state for t in
+                                    net.state_dict().values()], group)
+        self._infer = serve_fn or make_serving_fn(self.cfg, self.device,
+                                                  self.grid)
+        self._closed = False
         self._lock = threading.Lock()   # device calls serialize
         self.calls = 0                  # batched serving calls made
         self._batcher = None
@@ -117,10 +139,62 @@ class InferenceSession:
 
     def _call(self, image, mask, ref) -> np.ndarray:
         with self._lock:
-            u8 = self._infer(self.state.G, self.state.P, self.state.vgg,
-                             image, mask, ref)
+            if self.grid is not None:
+                self._send(_RUN, image, mask, ref)
+            u8 = self._run_slab(image, mask, ref)
             self.calls += 1
             return u8.cpu().numpy()
+
+    def _run_slab(self, image, mask, ref):
+        """The serving call on this rank's slab of the request (the whole
+        request without a grid)."""
+        if self.grid is not None:
+            part = spatial.slab({"image": image, "mask": mask, "ref": ref},
+                                self.grid)
+            image, mask, ref = part["image"], part["mask"], part["ref"]
+        return self._infer(self.state.G, self.state.P, self.state.vgg,
+                           image, mask, ref)
+
+    def _send(self, op: int, *arrays) -> None:
+        """Rank 0: the call's header (op, the batch's B, H, W and each
+        array's dtype), then the arrays, broadcast to the group."""
+        group = self.grid.world
+        dev = collectives.collective_device(group)
+        tensors = [torch.as_tensor(np.ascontiguousarray(a)) for a in arrays]
+        for t in tensors:
+            if t.dtype not in _WIRE_DTYPES:
+                raise ValueError(f"an sp session takes uint8 or float32 "
+                                 f"arrays, not {t.dtype}")
+        header = [op] + (list(tensors[0].shape[:3])
+                         + [_WIRE_DTYPES.index(t.dtype) for t in tensors]
+                         if tensors else [0] * 6)
+        dist.broadcast(torch.tensor(header, device=dev),
+                       src=dist.get_global_rank(group, 0), group=group)
+        if tensors:
+            collectives.broadcast_([t.to(dev) for t in tensors], group)
+
+    def follow(self) -> None:
+        """The loop of every rank but 0 of an sp session: each of rank 0's
+        calls, on this rank's slab, until rank 0 closes its session."""
+        if self.grid is None or self.grid.sp_index == 0:
+            raise RuntimeError("follow() is for ranks other than 0 of a "
+                               "session made with sp=True in a group")
+        group = self.grid.world
+        dev = collectives.collective_device(group)
+        src = dist.get_global_rank(group, 0)
+        while True:
+            header = torch.zeros(7, dtype=torch.int64, device=dev)
+            dist.broadcast(header, src=src, group=group)
+            op, b, h, w, *codes = header.tolist()
+            if op == _STOP:
+                return
+            arrays = [torch.empty(shape, dtype=_WIRE_DTYPES[c], device=dev)
+                      for shape, c in zip(((b, h, w, 3), (b, h, w),
+                                           (b, h, w, 3)), codes)]
+            collectives.broadcast_(arrays, group)
+            with self._lock:
+                self._run_slab(*arrays)
+                self.calls += 1
 
     def warmup(self) -> None:
         # uint8, as run_bytes sends it
@@ -156,8 +230,15 @@ class InferenceSession:
         return self.run(image[None], hole[None], dec(ref, "refImage")[None])[0]
 
     def close(self) -> None:
+        """Stop the batcher; on rank 0 of an sp session, release the
+        followers (once)."""
         if self._batcher is not None:
             self._batcher.close()
+        with self._lock:
+            if (self.grid is not None and self.grid.sp_index == 0
+                    and not self._closed):
+                self._send(_STOP)
+            self._closed = True
 
 
 class InpaintApp:

@@ -232,7 +232,7 @@ def test_cli_export_of_a_checkpoint(weights, tmp_path, monkeypatch):
     """`_cli export` restores epoch 3 of a port checkpoint (its
     config.json) and exports it; the artifact answers as a session of the
     restored networks.  `--quant int8` exports and serves the int8 path;
-    sp is refused by name."""
+    `--sp` outside torch.distributed.run builds the plain session."""
     _, tcfg, _, _, _ = weights
     ckpt = str(tmp_path / "ck")
     cfg = tcfg.replace(checkpoints_dir=ckpt, name="run", is_train=True)
@@ -269,5 +269,8 @@ def test_cli_export_of_a_checkpoint(weights, tmp_path, monkeypatch):
     monkeypatch.setattr(wsgiref.simple_server, "make_server", make_server)
     _cli.serve([*base, "--quant", "int8", "--random_weights"])
     assert served["ran"] and served["app"].session.cfg.quant == "int8"
-    with pytest.raises(NotImplementedError, match="sp"):
-        _cli.serve([*base, "--sp", "--random_weights"])
+    # `serve --sp` builds its session (one rank: the plain one), its
+    # server not started
+    served.clear()
+    _cli.serve([*base, "--sp", "--random_weights"])
+    assert served["ran"] and served["app"].session.grid is None

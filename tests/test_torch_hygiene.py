@@ -22,6 +22,7 @@ from deepinpainting_torch.engine.evaluator import evaluate
 from deepinpainting_torch.engine.export_model import (export_serving,
                                                       load_serving)
 from deepinpainting_torch.engine.trainer import Trainer
+from deepinpainting_torch.parallel import spatial
 from deepinpainting_torch.parallel.mesh import init_distributed
 from deepinpainting_torch.serve.app import InferenceSession, make_app
 
@@ -57,6 +58,8 @@ def test_import_loads_no_jax():
         "import deepinpainting_torch.utils.profiling\n"
         "import deepinpainting_torch.utils.params\n"
         "import deepinpainting_torch.parallel.mesh\n"
+        "import deepinpainting_torch.parallel.spatial\n"
+        "import deepinpainting_torch.parallel.collectives\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -116,6 +119,10 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_card, tmp_path):
         lambda: load_serving(str(tmp_path)),
         lambda: init_distributed(),
         lambda: init_distributed("cuda", "gloo"),
+        lambda: spatial.make_sp_inference_fn(TINY, None, None),
+        lambda: spatial.make_dp_sp_train_step(TINY, None, None),
+        lambda: spatial.make_dp_sp_eval_step(TINY, None, None),
+        lambda: InferenceSession(TINY, sp=True),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -243,8 +243,17 @@ def test_session_restores_g_p_vgg_bit_for_bit(checkpoint):
 
 def test_session_restore_refusals(checkpoint, tmp_path):
     cfg, state = checkpoint
-    with pytest.raises(NotImplementedError, match="sp"):
-        InferenceSession(cfg, 3, sp=True, device="cpu")
+    # sp=True outside a process group is the plain session, bit for bit
+    # (the JAX package's rule on one device)
+    sp, plain = (InferenceSession(cfg, 3, sp=flag, device="cpu")
+                 for flag in (True, False))
+    assert sp.grid is None
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (1, S, S, 3), dtype=np.uint8)
+    mask = np.zeros((1, S, S), np.uint8)
+    mask[:, 20:36, 16:40] = 1
+    np.testing.assert_array_equal(sp.run(img, mask, img[:, ::-1]),
+                                  plain.run(img, mask, img[:, ::-1]))
     with pytest.raises(FileNotFoundError, match="epoch 4"):
         InferenceSession(cfg, 4, device="cpu")
     # strict: a network that lacks a tensor of the checkpoint is refused

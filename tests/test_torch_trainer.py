@@ -27,6 +27,7 @@ from deepinpainting_torch.data import InpaintDataset
 from deepinpainting_torch.engine.schedules import lr_for_epoch
 from deepinpainting_torch.engine.state import current_learning_rate
 from deepinpainting_torch.engine.trainer import Trainer
+from deepinpainting_torch.parallel import mesh
 
 from torch_port_helpers import (configs, flat_dicts, jax_params, tiny_batch,
                                 torch_state)
@@ -163,10 +164,19 @@ def test_debug_nan_guard_halts_on_windowed_flush(dirs, tmp_path):
 
 
 def test_single_device_only(dirs, tmp_path):
-    _, cfg = configs(**dict(FIELDS, sp_devices=2,
-                            checkpoints_dir=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="sp_devices"):
+    """sp_devices that do not divide the world (one process here) are
+    refused with the JAX package's message, the text its Trainer gives on
+    its 8 virtual devices (parallel/mesh.py::grid_shape)."""
+    jcfg, cfg = configs(**dict(FIELDS, sp_devices=2,
+                               checkpoints_dir=str(tmp_path)))
+    with pytest.raises(ValueError) as got:
         Trainer(cfg, _datasets(dirs)[0], device="cpu")
+    assert str(got.value) == "sp_devices=2 must divide the device count (1)"
+    with pytest.raises(ValueError) as want:
+        JTrainer(jcfg.replace(sp_devices=3), None)
+    with pytest.raises(ValueError) as got:
+        mesh.grid_shape(cfg.batch_size, len(jax.devices()), 3)
+    assert str(got.value) == str(want.value)
 
 
 def test_one_epoch_matches_jax_trainer(dirs, tmp_path):

@@ -1,4 +1,5 @@
-"""The rank side of the two-process tests (tests/test_torch_dp_*.py).
+"""The rank side of the multi-process tests (tests/test_torch_dp_*.py and
+tests/test_torch_sp_*.py).
 
 `run_ranks(fn, world, tmp, *args)` starts `world` spawned processes; each
 joins a gloo group on the CPU through a file:// rendezvous under `tmp`
@@ -233,3 +234,170 @@ def make_images(root, n, size, seed):
         Image.fromarray(rng.integers(0, 256, (size, size, 3),
                                      dtype=np.uint8)).save(
             os.path.join(root, f"x{i}.png"))
+
+
+# ---- spatial partitioning (tests/test_torch_sp_*.py) -----------------------
+
+def _sp_context(rank, world):
+    """The spatial context of a 1 x world grid: this rank's slab."""
+    from deepinpainting_torch.parallel import collectives
+    g = torch.distributed.group.WORLD
+    return collectives.Spatial(g, rank, world, g)
+
+
+def sp_parts(rank, world, tmp):
+    """The spatial primitives and layers on this rank's slab of the whole
+    inputs in `tmp`/inputs.pt (H is dim 2): every conv geometry, the
+    gather and the slice, InstanceNorm and a train-mode BatchNorm, each
+    forward and backward of sum(y * w); a checkpointed conv whose backward
+    (and so the recompute) runs in another thread; the dropout's keep
+    mask; and the refusals.  Writes what each gave."""
+    import threading
+
+    from deepinpainting_torch.models.remat import checkpoint_level
+    from deepinpainting_torch.ops import convs
+    from deepinpainting_torch.parallel import collectives as C
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    sp = _sp_context(rank, world)
+    mine = lambda t: C.slice_rows(t, rank, world).clone()
+    out = {}
+
+    def run(layer, x, w):
+        x = mine(x).requires_grad_(True)
+        y = layer(x)
+        (y * mine(w)).sum().backward()
+        return (y.detach(), x.grad,
+                {k: p.grad for k, p in layer.named_parameters()},
+                dict(layer.state_dict()))
+
+    with C.use_spatial(sp):
+        for name, (layer, x, w) in inputs["layers"].items():
+            out[name] = run(layer, x, w)
+        # gather: every rank reads the whole tensor with its own weight
+        x = mine(inputs["x"]).requires_grad_(True)
+        y = C.full_rows(x)
+        (y * inputs["gather_w"][rank]).sum().backward()
+        out["gather"] = (y.detach(), x.grad)
+        # slice: each rank's rows of a tensor every rank holds
+        xf = inputs["x"].clone().requires_grad_(True)
+        y = C.own_rows(xf)
+        (y * mine(inputs["w"])).sum().backward()
+        out["slice"] = (y.detach(), xf.grad)
+        # a checkpointed level whose recompute runs in autograd's thread
+        seen = []
+        conv = inputs["layers"]["conv_k3s1p1"][0]
+
+        class Level(torch.nn.Module):
+            def forward(self, t):
+                seen.append(C.current_spatial() is not None)
+                return conv(t)
+
+        conv.zero_grad()
+        x = mine(inputs["layers"]["conv_k3s1p1"][1]).requires_grad_(True)
+        level = Level()
+        y = checkpoint_level(level, level, x, None)
+        w = mine(inputs["layers"]["conv_k3s1p1"][2])
+        t = threading.Thread(target=lambda: (y * w).sum().backward())
+        t.start()
+        t.join(60)
+        out["remat"] = (y.detach(), x.grad, seen)
+        # dropout: the whole image's mask, this rank's rows
+        drop = convs.Dropout(0.5).train()
+        gen = torch.Generator().manual_seed(11)
+        out["dropout"] = drop(torch.ones_like(mine(inputs["x"])), gen)
+        refusals = {}
+        for name, call in (
+                ("halo", lambda: C.halo_exchange(mine(inputs["x"])[:, :, :2],
+                                                 sp.group, rank, world, 3,
+                                                 2)),
+                ("odd", lambda: inputs["layers"]["conv_k4s2p1"][0](
+                    mine(inputs["x"])[:, :, :3])),
+                ("int8", lambda: _under_modes(convs.ConvModes(int8=True),
+                                              inputs)),
+                ("pack", lambda: _under_modes(convs.ConvModes(
+                    pack_small_cin=True, pack_out=True), inputs))):
+            try:
+                call()
+                refusals[name] = None
+            except (ValueError, NotImplementedError) as e:
+                refusals[name] = f"{type(e).__name__}: {e}"
+        out["refusals"] = refusals
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def _under_modes(modes, inputs):
+    from deepinpainting_torch.ops import convs
+    layer, x, _ = inputs["layers"]["conv_k3s1p1"]
+    with convs.use_modes(modes):
+        return layer(x[:, :, :4])
+
+
+def sp_infer(rank, world, tmp, cfgs):
+    """make_sp_inference_fn over the world, for each of `cfgs`, on this
+    rank's slab of each request in `tmp`/inputs.pt, with the networks'
+    state_dicts there: writes fake_B and fake_P (this rank's slabs) by
+    config and request."""
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.parallel import spatial
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    models = TI.build_models(cfgs[0])
+    for net, sd in zip(models, inputs["models"]):
+        net.load_state_dict(sd)
+        net.eval()
+    grid = spatial.make_sp_group()
+    outs = []
+    for cfg in cfgs:
+        infer = spatial.make_sp_inference_fn(cfg, "cpu", grid)
+        outs.append([infer(*models, *(spatial.slab(req, grid)[k] for k in
+                                      ("image", "mask", "ref")))
+                     for req in inputs["requests"]])
+    torch.save({"outs": outs, "grid": grid[:4]},
+               os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def sp_step(rank, world, tmp, cfg, n_data):
+    """One step of the n_data x (world / n_data) grid on this rank's part
+    (place_spatial) of the global batch of `tmp`/inputs.pt: writes the
+    rank's grid place, the metrics, and every trained network's `.grad`
+    and state_dict after the step."""
+    from deepinpainting_torch.engine.state import TRAINED
+    from deepinpainting_torch.parallel import spatial
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    state = _state(cfg, inputs["state"])
+    grid = spatial.make_dp_sp_groups(n_data, world // n_data)
+    step = spatial.make_dp_sp_train_step(cfg, "cpu", grid)
+    local = spatial.place_spatial(inputs["batch"], grid, cfg.grad_accum)
+    state, metrics = step(state, local)
+    torch.save({
+        "grid": grid[:4], "shape": tuple(local["image"].shape),
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "grads": {n: {k: p.grad.clone() for k, p in
+                      getattr(state, n).named_parameters()}
+                  for n in TRAINED},
+        "after": {n: getattr(state, n).state_dict() for n in TRAINED},
+    }, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def sp_session(rank, world, tmp, cfg):
+    """InferenceSession(sp=True) over the world: rank 0 answers the
+    requests of `tmp`/inputs.pt and closes, every other rank follows until
+    then.  Writes the answers (rank 0) and the calls each rank ran."""
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.serve.app import InferenceSession
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    models = TI.build_models(cfg)
+    for net, sd in zip(models, inputs["models"]):
+        net.load_state_dict(sd)
+    if rank:            # a follower's own weights: rank 0's replace them
+        for p in models.G.parameters():
+            p.data.add_(1.0)
+    sess = InferenceSession(cfg, state=TI.Models(*(n.eval() for n in models)),
+                            sp=True, device="cpu")
+    answers = []
+    if rank == 0:
+        answers = [sess.run(*r) for r in inputs["requests"]]
+        sess.close()
+    else:
+        sess.follow()
+    torch.save({"answers": answers, "calls": sess.calls,
+                "grid": sess.grid[:4]}, os.path.join(tmp, f"rank{rank}.pt"))
