@@ -90,7 +90,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      answer against the plain session's, the follower leaving with the
      session; (d) a group of one over NCCL: the SP builders bit for bit
      with the plain path, their request and step time as a ratio.  The
-     two-rank times are no scaling figure either.
+     two-rank times are no scaling figure either;
+ 13. reference checkpoints at 256 px, full width, f32, TF32 off:
+     stand-ins of the reference's netP, netG, netD and netF in plain
+     torch.nn (weights from a seed, parameter counts checked against the
+     reference's) and a torchvision VGG16 state_dict; the VGG converted by
+     `python -m deepinpainting_torch.convert.vgg_import` in a subprocess,
+     the four nets imported with `convert/net_import.py` into a
+     create_state state, saved with CheckpointManager and restored by
+     InferenceSession(cfg, which_epoch) with Config(vgg_weights=npz): (a)
+     every imported and restored tensor bit for bit, P, D and F forwards
+     against the stand-ins' within 1e-5, relu4_3 against torchvision's
+     recomputation; (b) fake_B kernel vs plain at phase 4's small hole,
+     b1 requests and their launches, one train step at B=8 kernels vs
+     plain (losses), launches 1 / 1; conversion, import, restore and b1
+     times.
 Three lines end the output, each on its own: a JSON object with a `kernels`
 list, the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -2735,6 +2749,422 @@ def spatial_partitioning(dev, card: str, p9_cfg, epoch: int, small_req,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---- phase 13: reference checkpoints (convert/net_import.py, vgg_import.py) -
+
+# SURVEY.md §2.2: the reference networks' parameter counts at full width
+# (train.ipynb's printed counts), and VGG16's first ten convs (the four
+# slices); G + P + VGG is Config()'s 139,747,014 (PERF.md §4).
+REFERENCE_PARAMS = {"G": 77_692_291, "P": 54_419_459, "D": 2_766_529,
+                    "F": 10_487_296, "vgg": 7_635_264}
+FWD_TOL = 1e-5         # phase 13: stand-in forwards vs the imported port nets
+# torchvision vgg16 `features`: (index, in, out) of each conv; the first ten
+# feed the four slices, conv5 (24, 26, 28) is what a real file also holds
+VGG16_CONVS = ((0, 3, 64), (2, 64, 64), (5, 64, 128), (7, 128, 128),
+               (10, 128, 256), (12, 256, 256), (14, 256, 256),
+               (17, 256, 512), (19, 512, 512), (21, 512, 512),
+               (24, 512, 512), (26, 512, 512), (28, 512, 512))
+VGG16_POOLS = (4, 9, 16)     # features indices of the max-pools before 23
+
+
+def reference_nets(ngf: int = 64, ndf: int = 64, norm: str = "instance",
+                   num_downs: int = 8, feat_in: int = 256,
+                   feat_width: int = 512) -> dict:
+    """Stand-ins for the reference's networks in plain torch.nn, laid out
+    as its models/networks.py builds them (SURVEY.md §2.2): nested
+    nn.Sequential blocks whose pre-order walk meets the layers in
+    execution order.  {"P": unet_256 (runnable), "G": unet_ipsr with
+    nn.Identity where the IPSR, InnerCos and InnerCos2 layers sit (they
+    hold no parameters; not runnable as the reference), "D": basic with
+    n_layers=3 (runnable), "F": feature (runnable)}.  Norm layers are
+    InstanceNorm2d(affine=True) or BatchNorm2d; netD's middle convs lose
+    their bias under BatchNorm; netF's norm is InstanceNorm2d without
+    affine parameters.  Weights stay at torch's defaults (fill_reference_
+    draws them); under `torch.device("meta")` only the shapes exist."""
+    import torch
+    import torch.nn as nn
+
+    def norm_layer(c):
+        return (nn.InstanceNorm2d(c, affine=True) if norm == "instance"
+                else nn.BatchNorm2d(c))
+
+    class SkipBlock(nn.Module):
+        """A U-Net level: `model` is down + [submodule] + up; a level other
+        than the outermost concatenates [model(x), x]."""
+
+        def __init__(self, layers, outermost):
+            super().__init__()
+            self.outermost = outermost
+            self.model = nn.Sequential(*layers)
+
+        def forward(self, x):
+            y = self.model(x)
+            return y if self.outermost else torch.cat([y, x], 1)
+
+    def unet_block(outer, inner, input_nc=None, sub=None, outermost=False,
+                   innermost=False):
+        """UnetSkipConnectionBlock (networks.py:395-452)."""
+        input_nc = input_nc or outer
+        down = [nn.LeakyReLU(0.2), nn.Conv2d(input_nc, inner, 4, 2, 1)]
+        if outermost:
+            return SkipBlock([down[1], sub, nn.ReLU(),
+                              nn.ConvTranspose2d(2 * inner, outer, 4, 2, 1),
+                              nn.Tanh()], True)
+        if innermost:
+            return SkipBlock(down + [nn.ReLU(), nn.ConvTranspose2d(
+                inner, outer, 4, 2, 1), norm_layer(outer)], False)
+        return SkipBlock(down + [norm_layer(inner), sub, nn.ReLU(),
+                                 nn.ConvTranspose2d(2 * inner, outer, 4, 2, 1),
+                                 norm_layer(outer)], False)
+
+    def ipsr_block(outer, inner, input_nc=None, sub=None, outermost=False,
+                   innermost=False, attention=False):
+        """UnetSkipConnectionBlock_3 (networks.py:212-278) and, with
+        attention, the IPSR block (:281-366)."""
+        input_nc = input_nc or outer
+        relu, lrelu = nn.ReLU(), nn.LeakyReLU(0.2)
+        if outermost:
+            return SkipBlock([nn.Conv2d(input_nc, inner, 3, 1, 1), sub,
+                              relu, nn.ConvTranspose2d(2 * inner, outer, 3,
+                                                       1, 1)], True)
+        dil = nn.Conv2d(input_nc, input_nc, 4, 2, 3, dilation=2)
+        if innermost:
+            return SkipBlock([lrelu, dil, relu, nn.ConvTranspose2d(
+                input_nc, outer, 4, 2, 1), norm_layer(outer)], False)
+        taps = [nn.Identity(), nn.Identity()] if attention else []
+        down = [lrelu, dil, norm_layer(input_nc), nn.LeakyReLU(0.2),
+                nn.Conv2d(input_nc, inner, 3, 1, 1)] + taps + [
+                    norm_layer(inner)]
+        up = [nn.Identity()] if attention else []
+        up += [relu, nn.ConvTranspose2d(2 * inner, outer, 3, 1, 1),
+               norm_layer(outer), nn.ReLU(),
+               nn.ConvTranspose2d(outer, outer, 4, 2, 1), norm_layer(outer)]
+        return SkipBlock(down + [sub] + up, False)
+
+    class Generator(nn.Module):
+        def __init__(self, block, input_nc, ipsr):
+            super().__init__()
+            b = block(ngf * 8, ngf * 8, innermost=True)
+            for _ in range(num_downs - 5 + int(ipsr)):
+                b = block(ngf * 8, ngf * 8, sub=b)
+            b = (block(ngf * 4, ngf * 8, sub=b, attention=True) if ipsr
+                 else block(ngf * 4, ngf * 8, sub=b))
+            b = block(ngf * 2, ngf * 4, sub=b)
+            b = block(ngf, ngf * 2, sub=b)
+            self.model = block(3, ngf, input_nc=input_nc, sub=b,
+                               outermost=True)
+
+        def forward(self, x):
+            return self.model(x)
+
+    class Net(nn.Module):
+        """A network whose `model` is one nn.Sequential."""
+
+        def __init__(self, layers):
+            super().__init__()
+            self.model = nn.Sequential(*layers)
+
+        def forward(self, x):
+            return self.model(x)
+
+    bias = norm == "instance"
+    d_layers = [nn.Conv2d(3, ndf, 4, 2, 1), nn.LeakyReLU(0.2)]
+    for n in range(1, 4):                  # NLayerDiscriminator, n_layers=3
+        cin, cout = ndf * min(2 ** (n - 1), 8), ndf * min(2 ** n, 8)
+        d_layers += [nn.Conv2d(cin, cout, 4, 2 if n < 3 else 1, 1, bias=bias),
+                     norm_layer(cout), nn.LeakyReLU(0.2)]
+    d_layers.append(nn.Conv2d(ndf * 8, 1, 4, 1, 1))
+    return {
+        "G": Generator(ipsr_block, 6, True),
+        "P": Generator(unet_block, 3, False),
+        "D": Net(d_layers),
+        "F": Net([nn.Conv2d(feat_in, feat_width, 4, 2, 1), nn.LeakyReLU(0.2),
+                  nn.Conv2d(feat_width, feat_width, 4, 2, 1),
+                  nn.InstanceNorm2d(feat_width), nn.LeakyReLU(0.2),
+                  nn.Conv2d(feat_width, feat_width, 4, 2, 1)]),
+    }
+
+
+def fill_reference_(net, generator, std: float = 0.02):
+    """Draw every tensor of a stand-in from `generator` (a CPU
+    torch.Generator), in state_dict order: conv weights from N(0, std), the
+    reference's init_type='normal'; biases, norm offsets and running means
+    from N(0, std), norm scales from N(1, std) and running variances from
+    U(0.5, 1.5), where the reference starts from constants, so that every
+    tensor differs and a misplaced one shows.  Returns `net`."""
+    import torch
+    with torch.no_grad():
+        for name, t in net.state_dict().items():
+            if name.endswith("num_batches_tracked"):
+                t.fill_(3)
+                continue
+            layer = net.get_submodule(name.rsplit(".", 1)[0])
+            draw = torch.randn(t.shape, generator=generator) * std
+            if name.endswith("running_var"):
+                draw = 0.5 + torch.rand(t.shape, generator=generator)
+            elif (name.endswith("weight")
+                  and not isinstance(layer, (torch.nn.Conv2d,
+                                             torch.nn.ConvTranspose2d))):
+                draw += 1.0
+            t.copy_(draw)
+    return net
+
+
+def reference_vgg_state_dict(generator, std: float = 0.02) -> dict:
+    """A torchvision VGG16 `features.*` state_dict (the thirteen convs,
+    conv5 included) drawn from `generator`: weights N(0, std), biases
+    N(0, std)."""
+    import torch
+    sd = {}
+    for idx, cin, cout in VGG16_CONVS:
+        sd[f"features.{idx}.weight"] = torch.randn(
+            (cout, cin, 3, 3), generator=generator) * std
+        sd[f"features.{idx}.bias"] = torch.randn(
+            (cout,), generator=generator) * std
+    return sd
+
+
+def torchvision_relu4_3(sd: dict, x):
+    """relu4_3 of torchvision's `features` on x, recomputed from the state
+    dict: conv 3x3 p1 + ReLU, max-pools at 4, 9 and 16, up to index 22."""
+    import torch.nn.functional as F
+    for idx, _, _ in VGG16_CONVS[:10]:
+        if idx - 1 in VGG16_POOLS:
+            x = F.max_pool2d(x, 2, 2)
+        x = F.relu(F.conv2d(x, sd[f"features.{idx}.weight"],
+                            sd[f"features.{idx}.bias"], padding=1))
+    return x
+
+
+def reference_param_counts() -> dict:
+    """The full-width stand-ins' parameter counts, built on the meta
+    device (shapes only), and the first ten VGG convs'."""
+    import torch
+    with torch.device("meta"):
+        nets = reference_nets()
+    counts = {n: sum(p.numel() for p in net.parameters())
+              for n, net in nets.items()}
+    counts["vgg"] = sum(cout * cin * 9 + cout
+                        for _, cin, cout in VGG16_CONVS[:10])
+    return counts
+
+
+def tensor_multiset_equal(a, b) -> bool:
+    """The tensors of state_dicts a and b are the same multiset, bit for
+    bit: sorted by shape and leading values, then compared in pairs."""
+    import torch
+    key = lambda t: (tuple(t.shape), t.flatten()[:4].tolist())
+    ta = sorted(a.values(), key=key)
+    tb = sorted(b.values(), key=key)
+    return len(ta) == len(tb) and all(
+        x.dtype == y.dtype and torch.equal(x, y.to(x.device))
+        for x, y in zip(ta, tb))
+
+
+def reference_checkpoints(dev, card: str, base, small, small_batch,
+                          n_b1: int = 20, seed: int = 13) -> dict:
+    """Phase 13: reference checkpoints to served requests at base's size
+    and widths (Config(batch_size=8) on the card).  Reference-layout
+    stand-ins and a torchvision VGG16 state_dict drawn from `seed`; the
+    VGG converted by `python -m deepinpainting_torch.convert.vgg_import`
+    in a subprocess; G, P, D and F imported with net_import into a
+    create_state state; the state saved with CheckpointManager and
+    restored by InferenceSession(cfg, which_epoch).  Checks: (a) every
+    imported and restored tensor equals the stand-ins' bit for bit, the
+    runnable stand-ins' forwards (P, D, F) agree with the port's within
+    FWD_TOL, the restored VGG's relu4_3 with torchvision's recomputation;
+    (b) fake_B at the `small` hole with the scan kernel against the plain
+    versions (E2E_TOL), one train step at base.batch_size from the
+    imported nets with the kernels against the plain versions (STEP_TOL,
+    losses), each path's launches.  Returns each path's launches."""
+    import torch
+    from deepinpainting_torch.convert import net_import
+    from deepinpainting_torch.convert.vgg_import import VGG16_FEATURES_INDEX
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.engine.checkpoint import CheckpointManager
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.serve.app import InferenceSession
+
+    t_phase = time.perf_counter()
+    counts = lambda: {"scan_stream": TAC.launches,
+                      "kbar_build": TAC.kbar_launches}
+    paths = {}
+    full = reference_param_counts()
+    log(f"phase 13 stand-ins at full width: parameters {full}; G + P + VGG "
+        f"= {full['G'] + full['P'] + full['vgg']}")
+    check(full == REFERENCE_PARAMS, "stand-in parameter counts must equal "
+          f"SURVEY.md's {REFERENCE_PARAMS}")
+    check(full["G"] + full["P"] + full["vgg"] == 139_747_014,
+          "G + P + VGG must equal Config()'s 139,747,014")
+
+    os.makedirs(BUILD, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_phase13_", dir=BUILD)
+    atexit.register(shutil.rmtree, root, True)
+    s = base.fine_size
+    gen = torch.Generator().manual_seed(seed)
+    nets = reference_nets(ngf=base.ngf, ndf=base.ndf, norm=base.norm,
+                          num_downs=s.bit_length() - 1,
+                          feat_in=int(256 * base.vgg_width_scale),
+                          feat_width=int(512 * base.vgg_width_scale))
+    nets = {n: fill_reference_(net, gen).to(dev).eval()
+            for n, net in nets.items()}
+    vgg_sd = reference_vgg_state_dict(gen)
+    pth, npz = os.path.join(root, "vgg16.pth"), os.path.join(root, "vgg16.npz")
+    torch.save(vgg_sd, pth)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "deepinpainting_torch.convert.vgg_import",
+         pth, npz], cwd=here, capture_output=True, text=True,
+        timeout=CHILD_TIMEOUT_S, env=dict(os.environ, PYTHONPATH=here))
+    convert_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"vgg_import exited {res.returncode}: "
+          f"{res.stderr[-2000:]}")
+    with np.load(npz) as raw:
+        npz_keys = sorted(raw.files)
+    log(f"phase 13 vgg_import: {os.path.getsize(pth)} byte .pth (13 convs, "
+        f"conv5 included) -> {os.path.getsize(npz)} byte .npz, "
+        f"{len(npz_keys)} arrays, {convert_s:.2f} s (a python -m "
+        f"subprocess, its start included)  [{card}]")
+    check(len(npz_keys) == 20, "the npz holds the ten slice convs")
+
+    cfg = base.replace(vgg_weights=npz, checkpoints_dir=root,
+                       name="phase13")
+    state = TI.create_state(cfg, torch.Generator().manual_seed(cfg.seed),
+                            dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in ("G", "P", "D", "F"):
+        net_import.load_torch_module(getattr(state, n), nets[n])
+    torch.cuda.synchronize()
+    import_ms = (time.perf_counter() - t0) * 1e3
+    same = {n: tensor_multiset_equal(getattr(state, n).state_dict(),
+                                     nets[n].state_dict())
+            for n in ("G", "P", "D", "F")}
+    log(f"phase 13 (a) net_import of G, P, D and F into a create_state "
+        f"state: {import_ms:.1f} ms; every port tensor equals a stand-in "
+        f"tensor bit for bit, none left or added: {same}  [{card}]")
+    check(all(same.values()), "imported tensors must equal the stand-ins'")
+
+    mgr = CheckpointManager(cfg)
+    mgr.save(1, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess = InferenceSession(cfg, 1, device=dev)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    G, P, vgg = sess.state
+    restored = {n: all(torch.equal(t, live[k]) for k, t in
+                       net.state_dict().items())
+                for n, net, live in (("G", G, state.G.state_dict()),
+                                     ("P", P, state.P.state_dict()))}
+    restored["vgg"] = all(
+        torch.equal(getattr(vgg, name).weight,
+                    vgg_sd[f"features.{idx}.weight"].to(dev))
+        and torch.equal(getattr(vgg, name).bias,
+                        vgg_sd[f"features.{idx}.bias"].to(dev))
+        for idx, name in VGG16_FEATURES_INDEX.items())
+    log(f"phase 13 (a) checkpoint {mgr.last_save['bytes']} bytes in "
+        f"{mgr.last_save['total_ms']:.1f} ms; InferenceSession(cfg, "
+        f"which_epoch=1) restored G, P and VGG in {restore_ms:.1f} ms, bit "
+        f"for bit with the import and the converted VGG: {restored}  "
+        f"[{card}]")
+    check(all(restored.values()), "the restored nets must equal the import")
+
+    # -- (a) the runnable stand-ins against the imported port nets --
+    rng = np.random.default_rng(seed)
+    draw = lambda *shape: torch.from_numpy(rng.uniform(
+        -1, 1, shape).astype(np.float32)).to(dev)
+    x = draw(1, 3, s, s)
+    feat = draw(1, nets["F"].model[0].in_channels, s // 8, s // 8).abs()
+    fwd = {}
+    with torch.no_grad():
+        for n, port, inp in (("P", P, x), ("D", state.D.eval(), x),
+                             ("F", state.F.eval(), feat)):
+            want, got = nets[n](inp), port(inp)
+            fwd[n] = ((got - want).abs().max().item(),
+                      want.abs().max().item())
+        want = torchvision_relu4_3({k: v.to(dev) for k, v in vgg_sd.items()},
+                                   x)
+        got = vgg(x).relu4_3
+        fwd["vgg relu4_3"] = ((got - want).abs().max().item(),
+                              want.abs().max().item())
+    log("phase 13 (a) forwards, stand-in against the imported port net "
+        "(max |d|, the stand-in's max |y|): " + ", ".join(
+            f"{n} {d:.3e} ({m:.3e})" for n, (d, m) in fwd.items())
+        + f" (limit {FWD_TOL})  [{card}]")
+    check(all(d <= FWD_TOL and np.isfinite(d) for d, _ in fwd.values()),
+          f"stand-in forwards against the port's beyond {FWD_TOL}")
+
+    # -- (b) serving: the kernel against the plain scan, then requests --
+    img = rng.integers(0, 256, (1, s, s, 3), dtype=np.uint8)
+    n_small = int(TI.prepare_masks(cfg, torch.from_numpy(small).float())[1]
+                  .sum().item())
+    ref = rng.integers(0, 256, (1, s, s, 3), dtype=np.uint8)
+    fb = {impl: TI.make_inference_fn(cfg.replace(attention_impl=impl), dev)(
+        G, P, vgg, img, small, ref)[0] for impl in ("cuda", "torch")}
+    d_small = (fb["cuda"] - fb["torch"]).abs().max().item()
+    check(bool(torch.isfinite(fb["cuda"]).all()), "fake_B must be finite")
+    check(d_small <= E2E_TOL, "imported nets: fake_B kernel vs plain")
+    sess.run(img, small, ref)                  # warm-up
+    calls0 = sess.calls
+    TAC.launches = TAC.kbar_launches = 0   # counts: the imported session
+    lat = []
+    for _ in range(n_b1):
+        t0 = time.perf_counter()
+        out = sess.run(img, small, ref)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    paths["reference_serving"] = counts()
+    p50 = statistics.median(lat)
+    log(f"phase 13 (b) serving the imported nets at a "
+        f"{n_small}-position hole: fake_B kernel vs plain "
+        f"max|d| {d_small:.3e} (limit {E2E_TOL}); b1 p50 {p50:.2f} ms "
+        f"({n_b1} requests), launches {paths['reference_serving']}  [{card}]")
+    check(out.dtype == np.uint8 and out.shape == (1, s, s, 3),
+          "result must be uint8 [1, s, s, 3]")
+    check(paths["reference_serving"] == {"scan_stream": sess.calls - calls0,
+                                         "kbar_build": 0},
+          "imported session: one scan launch a request, no kbar")
+    sess.close()
+    del sess, G, P, vgg
+
+    # -- (b) one train step from the imported nets, kernels vs plain --
+    losses = {}
+    for n in ("G", "P", "D", "F"):
+        getattr(state, n).train()
+    TAC.launches = TAC.kbar_launches = 0   # counts: the step from the import
+    _, m = TI.make_train_step(cfg.replace(attention_impl="cuda"), dev)(
+        state, small_batch)
+    losses["cuda"] = {k: v.item() for k, v in m.items()}
+    paths["reference_step"] = counts()
+    del state
+    plain = mgr.restore(1, TI.create_state(
+        cfg, torch.Generator().manual_seed(cfg.seed + 1), dev), dev)
+    _, m = TI.make_train_step(cfg.replace(attention_impl="torch"), dev)(
+        plain, small_batch)
+    losses["torch"] = {k: v.item() for k, v in m.items()}
+    del plain
+    torch.cuda.empty_cache()
+    d_step = max(abs(losses["cuda"][k] - losses["torch"][k])
+                 / max(abs(losses["torch"][k]), 1e-12) for k in losses["cuda"])
+    log(f"phase 13 (b) one train step at B={cfg.batch_size} from the "
+        f"imported nets (the plain step's state restored from the "
+        f"checkpoint), kernels vs plain: max relative loss difference "
+        f"{d_step:.3e} (limit {STEP_TOL}); launches "
+        f"{paths['reference_step']}; kernels {losses['cuda']}  [{card}]")
+    check(all(np.isfinite(v) for v in losses["cuda"].values()),
+          "every loss must be finite")
+    check(d_step <= STEP_TOL, "imported nets: train-step losses, kernels vs "
+          "plain versions")
+    check(paths["reference_step"] == {"scan_stream": 1, "kbar_build": 1},
+          "the step from the import: one scan and one kbar launch")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 13 times: conversion {convert_s:.2f} s, import "
+        f"{import_ms:.1f} ms, restore {restore_ms:.1f} ms, b1 p50 "
+        f"{p50:.2f} ms; the phase {time.perf_counter() - t_phase:.1f} s  "
+        f"[{card}]")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3331,11 +3761,16 @@ def main() -> int:
         (host(gt), center(), host(ref)), small_batch, steady, phase6["p50"])
     log(f"phase 12: {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 13: reference checkpoints to served requests, 256 px -------
+    torch.cuda.empty_cache()
+    p13 = reference_checkpoints(dev, card, tcfg, small, small_batch)
+
     # `launches` sums the main paths (serving, the train step, the trainer,
     # evaluate, phase 8's bf16 / remat / grad_accum paths, phase 9's
     # serving program, phase 10's int8 and packed paths, phase 11's
-    # data-parallel paths and phase 12's spatially partitioned ones, each
-    # rank's launches counted); the
+    # data-parallel paths, phase 12's spatially partitioned ones, each
+    # rank's launches counted, and phase 13's paths from the imported
+    # reference checkpoints); the
     # times are those at B=8, N=1024, the shapes a 256 px train step gives
     # both: `ms` a launch of 20 back to back, `single_launch_ms` the median
     # of single launches, each between its own pair of events.  `n4096`
@@ -3348,7 +3783,7 @@ def main() -> int:
                             **{path: n[name]
                                for paths in (p8["paths"], p9,
                                              p10["paths"], p11["paths"],
-                                             p12["paths"])
+                                             p12["paths"], p13)
                                for path, n in paths.items()}}
     n4096 = lambda name: {
         f"B{b}": {k: t[name][k] for k in ("ms", "single_ms", "plain_ms",

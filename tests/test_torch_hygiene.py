@@ -44,6 +44,8 @@ def test_import_loads_no_jax():
         "import deepinpainting_torch, deepinpainting_torch.entry\n"
         "import deepinpainting_torch.serve.app, deepinpainting_torch._build\n"
         "import deepinpainting_torch.convert.jax_bridge\n"
+        "import deepinpainting_torch.convert.net_import\n"
+        "import deepinpainting_torch.convert.vgg_import\n"
         "import deepinpainting_torch.ops.attention_cuda\n"
         "import deepinpainting_torch.losses\n"
         "import deepinpainting_torch.engine.state\n"
@@ -212,6 +214,24 @@ def test_unported_options_are_refused():
     TI.create_state(ported, gen, "cpu")
     TI.make_train_step(TINY.replace(debug_nan=True), "cpu")
     TI.create_state(TINY.replace(debug_nan=True), gen, "cpu")
+
+
+CONSOLE_SCRIPTS = ("train", "evaluate", "serve", "export")
+
+
+@pytest.mark.parametrize("command", CONSOLE_SCRIPTS)
+def test_console_script_help(command, capsys):
+    """pyproject.toml names dip-torch-{command} -> _cli:{command}, and
+    each entry's --help exits 0."""
+    text = (REPO / "pyproject.toml").read_text()
+    line = (f'dip-torch-{command} = "deepinpainting_torch._cli:'
+            f'{command}"')
+    assert line in text
+    from deepinpainting_torch import _cli
+    with pytest.raises(SystemExit) as exit_info:
+        getattr(_cli, command)(["--help"])
+    assert exit_info.value.code == 0
+    assert "usage" in capsys.readouterr().out
 
 
 def _run_smoke(cwd):
