@@ -54,7 +54,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      export and load times, bytes, the loaded call against the live
      serving function at B = 1, 3, 8, 9 bit for bit, the scan's launches
      inside it, a graph with the scan op and no kbar op, and
-     InferenceSession.from_export's p50 and b8;
+     InferenceSession.from_export's p50 and b8; (c') `_cli export
+     --platforms cuda,cpu`: one directory, one set of npz files, its cuda
+     graph on the card bit for bit with live serving at B = 1 and 8, its
+     cpu graph on the CPU bit for bit with live CPU serving at B=1; and
+     `--attention_impl torch`: a graph with the plain scan's op and no scan
+     op, bit for bit with live attention_impl='torch' serving;
  10. the conv knobs at 256 px, full width: (a) every distinct int8-eligible
      conv of the serving path at B=1 and B=8, its int32 sums against the
      plain version on the card bit for bit, the int8 path's ms beside f32
@@ -75,8 +80,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      phase 7's data, the step's time against phase 5's and its NCCL time;
      (c) a two-rank gloo Trainer.fit of 2 epochs of 3 steps: one
      checkpoint write, restored bit for bit on both ranks, the same
-     validation losses on both, a resume.  The two-rank times share one
-     card: they are no scaling figure;
+     validation losses on both, a resume; (d) int8 evaluate() on two
+     gloo ranks at global batch 8 on phase 5's weights (the ranks' halves
+     of different contrast), against one process's int8 evaluation of the
+     same batch (per-image PSNR / SSIM and fake_B), beside each rank's
+     rows evaluated alone.  The two-rank times share one card: they are
+     no scaling figure;
  12. spatial partitioning (parallel/spatial.py) at 256 px, full width, f32,
      TF32 off: (a) two gloo ranks sharing the card serve one b1 request's
      rows on phase 5's weights, against the one-process forward at phase
@@ -88,9 +97,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      statistics, launches); (c) `_cli serve --sp` under
      torch.distributed.run on two gloo ranks: a POST over a socket, the
      answer against the plain session's, the follower leaving with the
-     session; (d) a group of one over NCCL: the SP builders bit for bit
-     with the plain path, their request and step time as a ratio.  The
-     two-rank times are no scaling figure either;
+     session, and (c') the same with --quant int8 against the one-process
+     int8 session (the median over five draws, the image and four ulp
+     nudges, of the mean |d| within 6.4 levels, or int8's own chaos, the
+     largest mean change of the one-process int8 under 48 nudges of the
+     image by 1 to 24 ulps); (d) a group of one over NCCL:
+     the SP builders bit for bit with the plain path, their request and
+     step time as a ratio; (e) the conv knobs on slabs, in (a)'s and (b)'s
+     ranks: int8 requests at both holes (each int8 conv's int32 sums on
+     the slabs bit for bit with one process's on the whole tensor, the
+     MAX all-reduces of the scales counted, the median over five draws,
+     the image and four ulp nudges, of fake_B's mean |d| to the
+     one-process int8 forward within 0.05 or int8's own chaos as in (c');
+     controls: each slab's own maximum as its scale fails the scale
+     check, the slabs in the wrong order fail the fake_B limit), a packed
+     request (fake_B 1e-3, the same rewrites as one process) and the
+     1 x 2 packed step by (b)'s rules.
+     The two-rank times are no scaling figure either;
  13. reference checkpoints at 256 px, full width, f32, TF32 off:
      stand-ins of the reference's netP, netG, netD and netF in plain
      torch.nn (weights from a seed, parameter counts checked against the
@@ -1125,9 +1148,112 @@ def serving_program(dev, card: str, p9_cfg, epoch: int, requests, live,
         f"({n_http} requests), b8 {b8:.2f} img/s ({n_b8} requests over 8 "
         f"clients, {batched.calls - calls0} batched calls), launches "
         f"{paths['from_export']}  [{card}]")
+    paths.update(artifact_platforms(dev, card, p9_cfg, epoch, requests,
+                                    sess))
     for x in (single, batched, sess, app.session):
         x.close()
     return paths
+
+
+def artifact_platforms(dev, card: str, p9_cfg, epoch: int, requests,
+                       sess) -> dict:
+    """Phase 9 (c'): `_cli export --platforms cuda,cpu` of phase 5's
+    checkpoint, one directory and one set of npz files: its cuda graph on
+    the card bit for bit with live serving at B = 1 and 8 (deterministic
+    cuDNN), its cpu graph on the CPU bit for bit with the port's live CPU
+    serving at B=1; then `--attention_impl torch`: a graph with the plain
+    scan's op and no scan op, on the card bit for bit with live
+    attention_impl='torch' serving at B=1.  Export and load times, bytes
+    and each graph's node count.  Returns the cuda graph's launches."""
+    import torch
+    from deepinpainting_torch import _cli
+    from deepinpainting_torch.engine import export_model as EM
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.engine.checkpoint import CheckpointManager
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    t_part = time.perf_counter()
+    base = ["--checkpoints_dir", p9_cfg.checkpoints_dir, "--name",
+            p9_cfg.name, "--which_epoch", str(epoch)]
+    batches = {b: [np.concatenate(x) for x in zip(*(
+        requests[i % len(requests)] for i in range(b)))] for b in (1, 8)}
+    arts, times, graphs = {}, {}, {}
+    for name, extra in (("cuda_cpu", ["--platforms", "cuda,cpu"]),
+                        ("torch_impl", ["--platforms", "cuda",
+                                        "--attention_impl", "torch"])):
+        arts[name] = os.path.join(p9_cfg.checkpoints_dir, f"art_{name}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _cli.export(base + ["--out", arts[name]] + extra)
+        times[f"{name} export"] = time.perf_counter() - t0
+    for name, device in (("cuda_cpu", dev), ("cuda_cpu", "cpu"),
+                         ("torch_impl", dev)):
+        t0 = time.perf_counter()
+        graphs[name, str(device)] = EM.load_serving(arts[name], device)
+        torch.cuda.synchronize()
+        times[f"{name} load on {device}"] = time.perf_counter() - t0
+    files = {name: {f: os.path.getsize(os.path.join(art, f))
+                    for f in sorted(os.listdir(art))}
+             for name, art in arts.items()}
+    nodes = {k: len(next(iter(g.exported.values())).graph.nodes)
+             for k, g in graphs.items()}
+    ops = {k: EM.graph_ops(next(iter(g.exported.values())))
+           for k, g in graphs.items()}
+    call = lambda g, batch: g.call(g.G, g.P, g.vgg, *batch)
+    cuda_graph = graphs["cuda_cpu", str(dev)]
+    live = TI.make_serving_fn(sess.cfg, dev)
+    live_torch = TI.make_serving_fn(sess.cfg.replace(attention_impl="torch"),
+                                    dev)
+    with deterministic_cudnn():
+        want = {b: live(*sess.state, *batch) for b, batch in batches.items()}
+        want_torch = live_torch(*sess.state, *batches[1])
+        torch.cuda.synchronize()
+        TAC.launches = TAC.kbar_launches = 0   # counts: the cuda graph only
+        got = {b: call(cuda_graph, batch) for b, batch in batches.items()}
+        torch.cuda.synchronize()
+        launched = {"scan_stream": TAC.launches,
+                    "kbar_build": TAC.kbar_launches}
+        got_torch = call(graphs["torch_impl", str(dev)], batches[1])
+        torch.cuda.synchronize()
+    torch_launched = TAC.launches - launched["scan_stream"]
+    cpu_models = CheckpointManager(p9_cfg).restore_models(epoch, "cpu")
+    t0 = time.perf_counter()
+    cpu_want = TI.make_serving_fn(sess.cfg, "cpu")(*cpu_models, *batches[1])
+    cpu_live_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_got = call(graphs["cuda_cpu", "cpu"], batches[1])
+    cpu_graph_s = time.perf_counter() - t0
+    same = {f"cuda graph B={b}": torch.equal(got[b], want[b])
+            for b in batches}
+    same["cpu graph B=1"] = torch.equal(cpu_got, cpu_want)
+    same["torch-impl graph B=1"] = torch.equal(got_torch, want_torch)
+    log(f"phase 9 (c') _cli export --platforms cuda,cpu: "
+        f"{sum(files['cuda_cpu'].values())} bytes ({files['cuda_cpu']}); "
+        f"--platforms cuda --attention_impl torch: "
+        f"{sum(files['torch_impl'].values())} bytes; times (s) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+        + f"; graph nodes {({f'{a} on {d}': n for (a, d), n in nodes.items()})}"
+        f"; the cpu graph at B=1 {cpu_graph_s:.2f} s, live CPU serving "
+        f"{cpu_live_s:.2f} s  [{card}]")
+    log(f"phase 9 (c') bit for bit (deterministic cuDNN on the card): "
+        f"{same}; the cuda graph's launches over B = 1 and 8 {launched}, "
+        f"the torch-impl graph's {torch_launched}; the torch-impl graph "
+        f"calls {sorted(op for op in ops['torch_impl', str(dev)] if 'deepinpainting' in op)}")
+    check(all(same.values()), f"(c') exported graphs vs live: {same}")
+    check(f"{EM.SCAN_OP}.default" in ops["cuda_cpu", str(dev)]
+          and f"{EM.SCAN_OP}.default" in ops["cuda_cpu", "cpu"],
+          "(c') both platforms' graphs call the scan op")
+    check(f"{EM.PLAIN_SCAN_OP}.default" in ops["torch_impl", str(dev)]
+          and not any(op.startswith(f"{EM.SCAN_OP}.")
+                      for op in ops["torch_impl", str(dev)])
+          and nodes["torch_impl", str(dev)] == nodes["cuda_cpu", str(dev)],
+          "(c') the torch-impl graph: the plain op, no scan op, no loop")
+    check(launched == {"scan_stream": 2, "kbar_build": 0}
+          and torch_launched == 0,
+          "(c') one scan launch a cuda-graph call, none in the torch graph")
+    for art in arts.values():
+        shutil.rmtree(art, ignore_errors=True)
+    log(f"phase 9 (c') took {time.perf_counter() - t_part:.1f} s  [{card}]")
+    return {"exported_platforms": launched}
 
 
 @contextlib.contextmanager
@@ -1803,6 +1929,40 @@ def dp_fit_rank(rank: int, url: str, root: str, cfg, dirs: dict) -> None:
         torch.distributed.destroy_process_group()
 
 
+def dp_eval_rank(rank: int, url: str, root: str, cfg, p9_cfg,
+                 epoch: int) -> None:
+    """Phase 11 (d), one of two gloo ranks sharing the card: phase 5's
+    networks restored from phase 9's checkpoint, evaluate() of `cfg`
+    (int8) over the images of (d), then the data-parallel eval step on
+    this rank's rows of their global batch.  Writes eval{r}.json (the
+    per-image metrics, launches) and eval{r}.npy (fake_B of its rows)."""
+    import torch
+    from deepinpainting_torch.data import SelfRefDataset
+    from deepinpainting_torch.engine.checkpoint import CheckpointManager
+    from deepinpainting_torch.engine.evaluator import evaluate
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.parallel import mesh
+    dev, group = gloo_rank(rank, url)
+    try:
+        models = CheckpointManager(p9_cfg).restore_models(epoch, dev)
+        ds = SelfRefDataset(os.path.join(root, "d_val"),
+                            os.path.join(root, "d_mask"), cfg.fine_size)
+        TAC.launches = TAC.kbar_launches = 0
+        res = evaluate(cfg, models, ds, device=dev, verbose=False,
+                       return_per_image=True)
+        with np.load(os.path.join(root, "d_batch.npz")) as f:
+            batch = mesh.shard_batch(dict(f), rank, P11_WORLD)
+        out = mesh.make_dp_eval_step(cfg, dev, group)(models, batch)
+        np.save(os.path.join(root, f"eval{rank}.npy"),
+                out["fake_B"].cpu().numpy())
+        res["launches"] = {"scan_stream": TAC.launches,
+                           "kbar_build": TAC.kbar_launches}
+        with open(os.path.join(root, f"eval{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def dp_cli_child(result_path: str, argv) -> int:
     """Phase 11 (b), run by torch.distributed.run: `_cli train --multihost`
     with `argv`, the trainer's steps timed between synchronises, then two
@@ -1863,8 +2023,115 @@ def dp_cli_child(result_path: str, argv) -> int:
     return 0
 
 
+def dp_int8_eval(dev, card: str, root: str, dirs: dict, p9_cfg,
+                 epoch: int) -> dict:
+    """Phase 11 (d): evaluate() with quant='int8' on two gloo ranks sharing
+    the card, over 8 of phase 7's validation images at global B=8 (the
+    last 4, rank 1's rows, pulled to mid grey, so the ranks' activations'
+    maxima differ), on phase 5's weights, against one process's int8
+    evaluation of the same batch: per-image PSNR / SSIM and fake_B bit for
+    bit, or, where cuDNN sums a 4-row batch in another order than an
+    8-row one, within ENVELOPE_K x that order's own effect: the f32
+    evaluation of the same rows as two 4-row halves against the 8-row
+    batch.  Beside it, what a rank computed
+    before the scale was global: each rank's rows evaluated alone.
+    Returns the ranks' launches."""
+    import torch
+    from PIL import Image
+    from deepinpainting_torch.data import SelfRefDataset
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.engine.checkpoint import CheckpointManager
+    from deepinpainting_torch.engine.evaluator import evaluate
+    from deepinpainting_torch.parallel import mesh
+    t_part = time.perf_counter()
+    cfg = p9_cfg.replace(quant="int8", batch_size=TRAIN_BATCH,
+                         is_train=False, data_workers=0)
+    val, masks = os.path.join(root, "d_val"), os.path.join(root, "d_mask")
+    os.makedirs(val)
+    shutil.copytree(dirs["mask"], masks)
+    for i, name in enumerate(sorted(os.listdir(dirs["val"]))[:TRAIN_BATCH]):
+        with Image.open(os.path.join(dirs["val"], name)) as im:
+            img = np.asarray(im.convert("RGB")).astype(np.int16)
+        if i >= TRAIN_BATCH // 2:
+            img = 128 + (img - 128) // 4
+        Image.fromarray(img.astype(np.uint8)).save(
+            os.path.join(val, f"x{i}.png"))
+    ds = SelfRefDataset(val, masks, cfg.fine_size)
+    items = [ds.fetch(i) for i in range(TRAIN_BATCH)]
+    batch = {k: np.stack([x[k] for x in items]) for k in items[0]}
+    np.savez(os.path.join(root, "d_batch.npz"), **batch)
+    models = CheckpointManager(p9_cfg).restore_models(epoch, dev)
+    step = TI.make_eval_step(cfg, dev)
+    with deterministic_cudnn():
+        one = evaluate(cfg, models, ds, device=dev, verbose=False,
+                       return_per_image=True)
+        want = step(models, batch)
+        want_B = want["fake_B"].cpu().numpy()
+        halves = np.concatenate([
+            step(models, mesh.shard_batch(batch, r, P11_WORLD))["fake_B"]
+            .cpu().numpy() for r in range(P11_WORLD)])
+        # the f32 evaluation split as the ranks split it: what the batch
+        # size alone does to cuDNN's sums
+        f32_step = TI.make_eval_step(cfg.replace(quant="none"), dev)
+        f32_whole = f32_step(models, batch)
+        f32_halves = [f32_step(models, mesh.shard_batch(batch, r, P11_WORLD))
+                      for r in range(P11_WORLD)]
+    env = {k: float((torch.cat([h[k] for h in f32_halves]) - f32_whole[k])
+                    .abs().max()) for k in ("fake_B", "psnr", "ssim")}
+    del models, step, want, f32_step, f32_whole, f32_halves
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_children(dp_eval_rank, [(r, f"file://{root}/rendezvous_d", root,
+                                 cfg, p9_cfg, epoch)
+                                for r in range(P11_WORLD)], "phase 11 (d)")
+    d_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(P11_WORLD):
+        with open(os.path.join(root, f"eval{r}.json")) as f:
+            ranks.append(json.load(f))
+        ranks[-1]["fake_B"] = np.load(os.path.join(root, f"eval{r}.npy"))
+    got_B = np.concatenate([x["fake_B"] for x in ranks])
+    d_B = np.abs(got_B - want_B)
+    d_m = {k: max(abs(a - b) for a, b in zip(ranks[0][f"{k}_per_image"],
+                                             one[f"{k}_per_image"]))
+           for k in ("psnr", "ssim")}
+    bit = (d_B.max() == 0 and all(v == 0 for v in d_m.values())
+           and ranks[0]["psnr_per_image"] == ranks[1]["psnr_per_image"])
+    d_parent = np.abs(halves - want_B)
+    log(f"phase 11 (d) int8 evaluate() on {P11_WORLD} gloo ranks sharing "
+        f"the card, {one['images']} images at global B={TRAIN_BATCH} "
+        f"(rank 1's rows at a quarter of the contrast), phase 5's weights: "
+        f"against one process's int8 evaluation, fake_B max |d| "
+        f"{d_B.max():.3e} mean {d_B.mean():.3e}, per-image PSNR max |d| "
+        f"{d_m['psnr']:.3e} dB, SSIM {d_m['ssim']:.3e}, bit for bit: "
+        f"{bit}; f32 as two 4-row halves against the 8-row batch (the "
+        f"envelope, max |d|) {env}; PSNR {one['psnr']:.4f} dB SSIM "
+        f"{one['ssim']:.4f} "
+        f"(ranks "
+        f"{ranks[0]['psnr']:.4f} / {ranks[0]['ssim']:.4f}); before the "
+        f"global scale (each rank's rows evaluated alone): fake_B max |d| "
+        f"{d_parent.max():.3e} mean {d_parent.mean():.3e}; launches a rank "
+        f"{[x['launches'] for x in ranks]}; {d_s:.1f} s of ranks, the part "
+        f"{time.perf_counter() - t_part:.1f} s  [{card}]")
+    check(bit or (d_B.max() <= ENVELOPE_K * max(env["fake_B"], 1e-6)
+                  and all(d_m[k] <= ENVELOPE_K * max(env[k], 1e-6)
+                          for k in d_m)),
+          "(d) two-rank int8 evaluation vs one process")
+    check(ranks[0]["psnr_per_image"] == ranks[1]["psnr_per_image"]
+          and ranks[0]["images"] == TRAIN_BATCH,
+          "(d) the ranks' per-image metrics are the same")
+    check(d_parent.max() > (0.0 if bit else
+                            ENVELOPE_K * max(env["fake_B"], 1e-6)),
+          "(d) the halves' own scales must move fake_B (the check bites)")
+    check(all(x["launches"] == {"scan_stream": 2, "kbar_build": 0}
+              for x in ranks),
+          "(d) a scan launch a rank for evaluate()'s batch and the step's")
+    return {k: sum(x["launches"][k] for x in ranks)
+            for k in ("scan_stream", "kbar_build")}
+
+
 def data_parallel(dev, card: str, small_batch: dict, plain_ms: float,
-                  center, strokes, small) -> dict:
+                  center, strokes, small, p9_cfg, epoch: int) -> dict:
     """Phase 11: the data-parallel step and training program at 256 px,
     full width, weights from seed 0, TF32 off.  (a) two gloo ranks sharing
     the card, one step at global B=8 against the one-process step on the
@@ -2068,6 +2335,8 @@ def data_parallel(dev, card: str, small_batch: dict, plain_ms: float,
             f"(spawn included)  [{card}]")
         paths["dp_gloo_fit"] = {k: sum(x["launches"][k] for x in fits)
                                 for k in ("scan_stream", "kbar_build")}
+        paths["dp_gloo_int8_eval"] = dp_int8_eval(dev, card, root, dirs,
+                                                  p9_cfg, epoch)
         return {"paths": paths, "gloo_ms": gloo_ms, "dp_ms": dp_ms,
                 "nccl_ms": coll, "grad_bytes": b["grad_bytes"]}
     finally:
@@ -2101,19 +2370,28 @@ SP_SCALE_TOL = 1e-2    # (b): a net's gradient scale against the one-process
                        # replicated work n_sp times reads n_sp - 1 = 1
 SP_TIMED = 10          # (a), (d): timed requests
 SP_BN_SIZE = 256       # (b): norm='batch' size (128 if the phase runs long)
+SP_KNOB_TIMED = 3      # (e): timed int8 and packed requests
+ULP = 2.0 ** -23       # (e), (c'): one ulp of 1.0
+# (e), (c'): int8's own chaos is the one-process int8 forward's largest
+# mean change over these relative nudges of the image (whole ulps: each
+# one a different f32 image); (e) and (c') run the SP int8 request at the
+# image and at the first four of them, and hold the median of its five
+# distances to the one-process forward at the same images
+INT8_NUDGES = tuple(k * ULP for n in range(1, 25) for k in (n, -n))
+SP_INT8_DRAWS = (0.0,) + INT8_NUDGES[:4]
 
 
 def count_collectives() -> dict:
     """Count this process's torch.distributed all_reduce and broadcast
     calls and their bytes, by the function that made them: the halo
     exchange, the gather of rows, the all-reduced sums of the norms and
-    means (forward and backward each), or the call itself (the gradient
-    all-reduce, the request's broadcast).  Returns the live dict, {kind:
+    means (forward and backward each), int8's MAX of a scale, or the call
+    itself (the gradient all-reduce, the request's broadcast).  Returns the live dict, {kind:
     [calls, bytes]}; clear it between the windows it measures."""
     import torch.distributed as dist
     counts = {}
     kinds = {"_HaloExchange": "halo", "_GatherRows": "gather",
-             "_AllReduceSum": "sum"}
+             "_AllReduceSum": "sum", "all_reduce_max": "max"}
 
     def wrap(fn, name):
         def counted(tensor, *a, **k):
@@ -2138,15 +2416,106 @@ def sp_gloo_rank(rank: int, url: str):
     return mesh.init_distributed("cuda", "gloo", url, P12_WORLD, rank)
 
 
+def check_int32_on_slabs(models):
+    """Hook every conv of `models` on an sp rank: for each int8 conv that
+    runs on a slab, whether its int32 sums (a transposed conv's on the
+    halo'd slab cut to its own rows) and its activation scale equal, bit
+    for bit, this rank's rows of the one-process int8 conv on the same
+    whole tensor (the slabs' inputs gathered) and its scale.  A gathered
+    level's conv runs on the whole tensor already and is counted only.
+    Returns (the live {"slabs": [(sums equal, scale equal)], "whole": n},
+    a function that removes the hooks)."""
+    import torch
+    from deepinpainting_torch.ops import convs, quant
+    from deepinpainting_torch.parallel import collectives as C
+    pending, seen = [], {"slabs": [], "whole": 0}
+    dequantize = quant._dequantize
+
+    def recorded(acc, sx, *a):
+        pending.append((acc, sx))
+        return dequantize(acc, sx, *a)
+
+    def hook(module, inputs, y):
+        if not pending:
+            return
+        acc, sx = pending.pop()
+        sp = C.current_spatial()
+        if sp is None:
+            seen["whole"] += 1
+            return
+        rows = y.shape[2]
+        acc = acc.narrow(2, (acc.shape[2] - rows) // 2, rows)
+        xw = C.gather_rows(inputs[0], sp.group, sp.index, sp.size)
+        w = module.weight.to(xw.dtype)
+        with C.use_group(None), C.replicated():
+            xq, sxw = quant.quantize_activation(xw)
+        args = (module.stride[0], module.padding[0])
+        if isinstance(module, convs.ConvTranspose2d):
+            whole = quant.conv_transpose2d_int32(
+                xq, quant.quantize_weight(w, transposed=True)[0], *args)
+        else:
+            whole = quant.conv2d_int32(xq, quant.quantize_weight(w)[0],
+                                       *args, module.dilation[0])
+        seen["slabs"].append((
+            torch.equal(whole.narrow(2, sp.index * rows, rows), acc),
+            torch.equal(sxw, sx)))
+
+    quant._dequantize = recorded
+    handles = [m.register_forward_hook(hook) for net in models
+               for m in net.modules()
+               if isinstance(m, (convs.Conv2d, convs.ConvTranspose2d))]
+
+    def remove():
+        quant._dequantize = dequantize
+        for h in handles:
+            h.remove()
+    return seen, remove
+
+
+def count_rewrites():
+    """Count the pack rewrites' calls in this process (ops/convs.py looks
+    them up by name).  Returns (the live {name: calls}, a function that
+    puts the rewrites back)."""
+    from deepinpainting_torch.ops import convs
+    names = ("_conv2d_space_to_depth", "_conv2d_tap_stack",
+             "_conv2d_hpack2", "_deconv_dpack4")
+    calls, saved = {n: 0 for n in names}, {n: getattr(convs, n)
+                                            for n in names}
+    for n in names:
+        def wrapped(*a, _n=n, _f=saved[n]):
+            calls[_n] += 1
+            return _f(*a)
+        setattr(convs, n, wrapped)
+    return calls, lambda: [setattr(convs, n, f) for n, f in saved.items()]
+
+
+def packed_request(infer, models, req, rewrites: dict):
+    """Phase 12 (e)'s packed request: `infer` (one process's, or a rank's
+    on its slabs) on req = (image, mask, ref).  Returns ([fake_B, fake_P]
+    on the host, {rewrite: calls})."""
+    import torch
+    for k in rewrites:
+        rewrites[k] = 0
+    out = [t.cpu().numpy() for t in infer(*models, *req)]
+    torch.cuda.synchronize()
+    return out, dict(rewrites)
+
+
 def sp_infer_rank(rank: int, url: str, root: str, cfg, epoch: int) -> None:
     """Phase 12 (a), one of two gloo ranks sharing the card: phase 5's
     networks restored from phase 9's checkpoint, make_sp_inference_fn over
     both ranks, this rank's slab of the small-hole and the center-hole
-    request, then SP_TIMED more small-hole requests timed.  Writes
-    sp_infer{r}.json (launches, collectives, ms) and .npz (the slabs)."""
+    request, then SP_TIMED more small-hole requests timed; then (e): the
+    same requests under int8 at SP_INT8_DRAWS' images (the first one's
+    convs checked on the slabs), again with each slab's own maximum as
+    its scale (a control), the small one with the pack modes, and
+    SP_KNOB_TIMED of int8 and of packed requests timed.
+    Writes sp_infer{r}.json (launches, collectives, ms) and .npz (the
+    slabs)."""
     import torch
     from deepinpainting_torch.engine.checkpoint import CheckpointManager
     from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.ops import quant
     from deepinpainting_torch.parallel import spatial
     dev = sp_gloo_rank(rank, url)
     try:
@@ -2183,6 +2552,65 @@ def sp_infer_rank(rank: int, url: str, root: str, cfg, epoch: int) -> None:
         out["ms"] = ms
         out["timed_launches"] = {"scan_stream": TAC.launches,
                                  "kbar_build": TAC.kbar_launches}
+        # -- (e) int8 at both holes, SP_INT8_DRAWS of each (the first
+        # with its convs checked on the slabs), then the same with each
+        # slab's own maximum as its scale (a control); the pack modes at
+        # the small hole --
+        out["e"] = {}
+        qinfer = spatial.make_sp_inference_fn(cfg.replace(quant="int8"),
+                                              dev, grid)
+        real_max = quant.all_reduce_max
+        for mode in ("int8", "int8_slab"):
+            if mode == "int8_slab":
+                quant.all_reduce_max = lambda x, group: x.detach().clone()
+            TAC.launches = TAC.kbar_launches = 0
+            counts.clear()
+            record = {}
+            try:
+                for name in ("small", "center"):
+                    r = reqs[name]
+                    x = r["image"].astype(np.float32) / 127.5 - 1.0
+                    for j, e in enumerate(SP_INT8_DRAWS):
+                        seen, remove = (check_int32_on_slabs(models) if j == 0
+                                        else ({}, lambda: None))
+                        try:
+                            fake_B, fake_P = qinfer(
+                                *models, x * np.float32(1.0 + e), r["mask"],
+                                r["ref"])
+                            torch.cuda.synchronize()
+                        finally:
+                            remove()
+                        if j == 0:
+                            record[name] = seen
+                        arrays[f"e_{mode}_{name}_{j}_B"] = fake_B.cpu().numpy()
+                        arrays[f"e_{mode}_{name}_{j}_P"] = fake_P.cpu().numpy()
+            finally:
+                quant.all_reduce_max = real_max
+            out["e"][mode] = {"record": record,
+                              "launches": {"scan_stream": TAC.launches,
+                                           "kbar_build": TAC.kbar_launches},
+                              "collectives": {k: list(v)
+                                              for k, v in counts.items()}}
+        rewrites, _ = count_rewrites()
+        small_req = tuple(reqs["small"][k] for k in ("image", "mask", "ref"))
+        pinfer = spatial.make_sp_inference_fn(
+            cfg.replace(pack_small_cin=True, pack_out=True), dev, grid)
+        TAC.launches = TAC.kbar_launches = 0
+        kout, calls = packed_request(pinfer, models, small_req, rewrites)
+        out["e"]["packed"] = {"rewrites": calls, "launches": {
+            "scan_stream": TAC.launches, "kbar_build": TAC.kbar_launches}}
+        arrays.update({f"e_packed_small_{k}": v for k, v in zip("BP", kout)})
+        for knob, kinfer in (("int8", qinfer), ("packed", pinfer)):
+            TAC.launches = TAC.kbar_launches = 0
+            ms = []
+            for _ in range(SP_KNOB_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                kinfer(*models, *small_req)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out["e"][knob].update(ms=ms, timed_launches={
+                "scan_stream": TAC.launches, "kbar_build": TAC.kbar_launches})
         np.savez(os.path.join(root, f"sp_infer{rank}.npz"), **arrays)
         with open(os.path.join(root, f"sp_infer{rank}.json"), "w") as f:
             json.dump(out, f)
@@ -2278,8 +2706,9 @@ def bn_rel_by_net(got: dict, want: dict) -> dict:
 
 
 def sp_cli_child(result_path: str, argv) -> int:
-    """Phase 12 (c), run by torch.distributed.run on two ranks: `_cli serve
-    --sp` with `argv`, gloo in place of nccl (two ranks share the card).
+    """Phase 12 (c) and (c'), run by torch.distributed.run on two ranks:
+    `_cli serve --sp` with `argv`, gloo in place of nccl (two ranks share
+    the card).
     Rank 0's server, once up, takes one POST over a socket and a GET of
     /result, answers the request once more in process for the numbers,
     and stops; rank 1 follows until the session closes.  Each rank writes
@@ -2320,8 +2749,13 @@ def sp_cli_child(result_path: str, argv) -> int:
             out.update(post_status=status, location=location, post_ms=ms,
                        result_page=[page[0], b"test.jpg" in page[2]],
                        grid=list(sess.grid[:4]))
-            np.savez(result_path + ".answer.npz",
-                     u8=sess.run(img, mask, ref))
+            answers = {"u8": sess.run(img, mask, ref)}
+            if "int8" in argv:      # (c'): SP_INT8_DRAWS of the request
+                x = img.astype(np.float32) / 127.5 - 1.0
+                answers["draws"] = np.stack([
+                    sess.run(x * np.float32(1.0 + e), mask, ref)
+                    for e in SP_INT8_DRAWS])
+            np.savez(result_path + ".answer.npz", **answers)
             out["calls"] = sess.calls
 
     wsgiref.simple_server.make_server = lambda host, port, app, **k: Once(app)
@@ -2355,7 +2789,10 @@ def sp_train_steps(dev, card: str, s: int, small_batch: dict,
     crop = lambda b, n: {k: v[:, :n, :n] for k, v in b.items()}
     cfgs = {"f32_instance": (Config(batch_size=TRAIN_BATCH), s),
             "norm_batch": (Config(batch_size=TRAIN_BATCH, norm="batch",
-                                  fine_size=s_bn), s_bn)}
+                                  fine_size=s_bn), s_bn),
+            # phase 12 (e): both pack modes on the slabs
+            "packed": (Config(batch_size=TRAIN_BATCH, pack_small_cin=True,
+                              pack_out=True), s)}
     envelope = {}
     with deterministic_cudnn():
         for label, (cfg, size) in cfgs.items():
@@ -2483,8 +2920,232 @@ def sp_train_steps(dev, card: str, s: int, small_batch: dict,
         f"share one card: no scaling figure; the plain step "
         f"{plain_ms:.1f} ms, phase 5)  [{card}]")
     return ({label: [x[label]["ms"] for x in steps] for label in cfgs},
-            {k: sum(x[label]["launches"][k] for x in steps for label in cfgs)
-             for k in ("scan_stream", "kbar_build")})
+            {label: {k: sum(x[label]["launches"][k] for x in steps)
+                     for k in ("scan_stream", "kbar_build")}
+             for label in cfgs})
+
+
+def sp_int8_check(card: str, ranks: list, whole: dict, e_draws: dict,
+                  e_env: dict) -> dict:
+    """Phase 12 (e)'s int8 checks, from (a)'s ranks, at each hole: each
+    int8 conv on a slab bit for bit with the one-process int8 conv on the
+    same whole tensor (check_int32_on_slabs), one MAX all-reduce of one
+    f32 a sharded int8 conv, fake_P within INT8_GAP mean |d| of the
+    one-process int8 forward at every draw, and the median over
+    SP_INT8_DRAWS of fake_B's mean |d| within INT8_GAP or, where int8's
+    own chaos is wider, within `e_env`, the one-process int8 forward's
+    largest mean change over INT8_NUDGES (int8 on these weights moves
+    by as much under a nudge of an ulp as SP's f32 sums move it).  Two
+    controls: with each slab's own maximum as its scale the convs'
+    scales must differ from the whole tensor's (the end-to-end figures
+    are printed: on noise images that fault stays inside int8's own
+    chaos), and the slabs put together in the wrong order must fail the
+    fake_B limit.  Returns the launches by path."""
+    n_draws = len(SP_INT8_DRAWS)
+    for name in ("small", "center"):
+        d = {mode: [[float(np.abs(whole[f"e_{mode}_{name}_{j}_{k}"]
+                                  - e_draws[name][j][i]).mean())
+                     for j in range(n_draws)] for i, k in enumerate("BP")]
+             for mode in ("int8", "int8_slab")}
+        med = {mode: statistics.median(v[0]) for mode, v in d.items()}
+        limit = max(INT8_GAP, e_env[name]["B"])
+        swapped = np.concatenate([x["arrays"][f"e_int8_{name}_0_B"]
+                                  for x in reversed(ranks)], 1)
+        d_swap = float(np.abs(swapped - e_draws[name][0][0]).mean())
+        recs = {mode: [x["e"][mode]["record"][name] for x in ranks]
+                for mode in d}
+        sharded = len(recs["int8"][0]["slabs"])
+        sums = [all(a for a, _ in r["slabs"]) for r in recs["int8"]]
+        scales = {mode: [all(b for _, b in r["slabs"]) for r in rs]
+                  for mode, rs in recs.items()}
+        got = whole[f"e_int8_{name}_0_B"]
+        u8 = lambda x: np.floor(np.clip((x + 1.0) * 127.5, 0, 255))
+        same_u8 = float((u8(got) == u8(e_draws[name][0][0])).mean())
+        fmt = lambda v: " ".join(f"{x:.3e}" for x in v)
+        log(f"phase 12 (e) int8 SP request at the {name} hole: {sharded} "
+            f"int8 convs on slabs (and {recs['int8'][0]['whole']} on "
+            f"gathered levels), int32 sums bit for bit with the one-process "
+            f"int8 conv on the same whole tensor, rank by rank: {sums}, "
+            f"scales {scales['int8']}; against the one-process int8 forward "
+            f"at the same images ({n_draws} draws: the image and 4 ulp "
+            f"nudges): fake_B mean |d| {fmt(d['int8'][0])}, median "
+            f"{med['int8']:.3e} (limit {limit:.3e}: {INT8_GAP}, or the "
+            f"one-process int8 forward's largest mean change over "
+            f"{len(INT8_NUDGES)} nudges of the image by 1 to "
+            f"{len(INT8_NUDGES) // 2} ulps, "
+            f"{e_env[name]['B']:.3e}), max "
+            f"{np.abs(got - e_draws[name][0][0]).max():.3e}, uint8 pixels "
+            f"equal {same_u8:.4%}; fake_P mean |d| "
+            f"{fmt(d['int8'][1])} (limit {INT8_GAP}; its own largest nudge "
+            f"change {e_env[name]['P']:.3e}); controls: each slab's own "
+            f"maximum as its scale: scales equal rank by rank "
+            f"{scales['int8_slab']}, fake_B mean |d| "
+            f"{fmt(d['int8_slab'][0])} (median {med['int8_slab']:.3e}), "
+            f"fake_P {fmt(d['int8_slab'][1])}; the slabs in the wrong order: "
+            f"fake_B mean |d| {d_swap:.3e}  [{card}]")
+        check(all(sums) and all(scales["int8"]) and sharded > 0
+              and all(len(r["slabs"]) == sharded for r in recs["int8"]),
+              f"(e) int8 sums and scales on slabs, {name} hole")
+        check(all(x <= INT8_GAP for x in d["int8"][1]),
+              f"(e) int8 SP fake_P, {name} hole")
+        check(med["int8"] <= limit and np.isfinite(got).all(),
+              f"(e) int8 SP fake_B, {name} hole")
+        check(not all(scales["int8_slab"]),
+              f"(e) control: each slab's own scale must fail the scale "
+              f"check, {name} hole")
+        check(d_swap > limit, f"(e) control: the slabs in the wrong order "
+              f"must fail the fake_B limit, {name} hole")
+    maxes = {mode: [x["e"][mode]["collectives"].get("max", [0, 0])
+                    for x in ranks] for mode in ("int8", "int8_slab")}
+    n_max = sharded * 2 * n_draws
+    launches = {mode: [x["e"][mode]["launches"] for x in ranks]
+                for mode in ("int8", "int8_slab")}
+    timed = [x["e"]["int8"]["timed_launches"] for x in ranks]
+    ms = ranks[0]["e"]["int8"]["ms"]
+    log(f"phase 12 (e) int8 SP: MAX all-reduces (calls, bytes) a rank over "
+        f"{2 * n_draws} requests {maxes['int8']} (the control's "
+        f"{maxes['int8_slab']}); b1 p50 {statistics.median(ms):.2f} ms on "
+        f"rank 0 ({SP_KNOB_TIMED} requests at the small hole, "
+        f"{min(ms):.2f} to {max(ms):.2f}): not a scaling figure, two ranks "
+        f"share the card; launches a rank {launches['int8']} (the "
+        f"control's {launches['int8_slab']}), timed {timed}  [{card}]")
+    check(all(m == [n_max, 4 * n_max] for m in maxes["int8"])
+          and all(m == [0, 0] for m in maxes["int8_slab"]),
+          "(e) one MAX all-reduce of one f32 a sharded int8 conv")
+    one = {"scan_stream": 2 * n_draws, "kbar_build": 0}
+    check(all(v == one for v in launches["int8"] + launches["int8_slab"])
+          and all(v == {"scan_stream": SP_KNOB_TIMED, "kbar_build": 0}
+                  for v in timed),
+          "(e) int8: one scan launch a request on each rank")
+    return {"sp_gloo_int8": {k: sum(v[k] for v in launches["int8"] + timed)
+                             for k in ("scan_stream", "kbar_build")}}
+
+
+def sp_packed_check(card: str, ranks: list, whole: dict,
+                    e_packed) -> dict:
+    """Phase 12 (e)'s packed checks, from (a)'s ranks: fake_B within
+    E2E_TOL of the one-process packed forward at the small hole, each
+    rank calling the rewrites one process calls.  Returns the launches by
+    path."""
+    (want, _), mine = e_packed
+    d = np.abs(whole["e_packed_small_B"] - want)
+    calls = [x["e"]["packed"]["rewrites"] for x in ranks]
+    launches = [x["e"]["packed"]["launches"] for x in ranks]
+    timed = [x["e"]["packed"]["timed_launches"] for x in ranks]
+    ms = ranks[0]["e"]["packed"]["ms"]
+    log(f"phase 12 (e) packed SP request at the small hole: fake_B against "
+        f"the one-process packed forward max |d| {d.max():.3e} (limit "
+        f"{E2E_TOL}); rewrites called by one process {mine}, by each rank "
+        f"{calls}; b1 p50 {statistics.median(ms):.2f} ms on rank 0 "
+        f"({SP_KNOB_TIMED} requests, {min(ms):.2f} to {max(ms):.2f}): not "
+        f"a scaling figure; launches a rank {launches}, timed {timed}  "
+        f"[{card}]")
+    check(d.max() <= E2E_TOL, "(e) packed SP fake_B, small hole")
+    check(all(c == mine for c in calls) and mine["_conv2d_hpack2"] > 0,
+          "(e) the ranks pack the convs one process packs")
+    check(all(v == {"scan_stream": 1, "kbar_build": 0} for v in launches)
+          and all(v == {"scan_stream": SP_KNOB_TIMED, "kbar_build": 0}
+                  for v in timed),
+          "(e) packed: one scan launch a request on each rank")
+    return {"sp_gloo_packed": {k: sum(v[k] for v in launches + timed)
+                               for k in ("scan_stream", "kbar_build")}}
+
+
+def sp_cli_serve(dev, card: str, part: str, extra, p9_cfg, epoch: int,
+                 small_req, root: str, int8_env: float) -> dict:
+    """Phase 12 (c) and (c'): `_cli serve --sp` with `extra` options (f32,
+    or --quant int8) under torch.distributed.run on two gloo ranks: a
+    POST over a socket, the answer against the one-process session's with
+    the same options (f32: within 1 level on 99.9% of the values; int8:
+    the median over SP_INT8_DRAWS' images of the mean |d| within INT8_GAP
+    on [-1, 1], 6.4 levels, or, where int8's own chaos is wider,
+    `int8_env`, the largest mean change in levels of the one-process int8
+    serving function over INT8_NUDGES of the image), the follower leaving
+    with the session.  Returns the launches by path."""
+    from deepinpainting_torch.serve.app import InferenceSession
+    s = p9_cfg.fine_size
+    int8 = "int8" in extra
+    result = os.path.join(root, part.replace("'", "_prime"))
+    img, mask, ref = small_req
+    np.savez(result + ".request.npz", image=img, mask=mask, ref=ref)
+    args = ["--sp", "--checkpoints_dir", p9_cfg.checkpoints_dir,
+            "--name", p9_cfg.name, "--which_epoch", str(epoch),
+            "--static_dir", os.path.join(root, "static")] + extra
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(P12_WORLD), os.path.abspath(__file__),
+         "--phase12c", result, "--"] + args,
+        cwd=here, capture_output=True, text=True, timeout=CHILD_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=here))
+    c_s = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        log(f"  ({part}) {line}")
+    check(res.returncode == 0, f"phase 12 ({part}): torch.distributed.run "
+          f"exited {res.returncode}: {res.stderr[-3000:]}")
+    c = []
+    for r in range(P12_WORLD):
+        with open(f"{result}.rank{r}.json") as f:
+            c.append(json.load(f))
+    with np.load(result + ".answer.npz") as f:
+        sp_u8, sp_draws = f["u8"], f["draws"] if int8 else None
+    with deterministic_cudnn():
+        plain = InferenceSession(p9_cfg.replace(
+            quant="int8" if int8 else p9_cfg.quant), epoch, device=dev)
+        plain_u8 = plain.run(img, mask, ref)
+        if int8:
+            x = img.astype(np.float32) / 127.5 - 1.0
+            d_draws = [float(np.abs(a.astype(np.int16) - plain.run(
+                x * np.float32(1.0 + e), mask, ref).astype(np.int16)).mean())
+                       for a, e in zip(sp_draws, SP_INT8_DRAWS)]
+        plain.close()
+    diff = np.abs(sp_u8.astype(np.int16) - plain_u8.astype(np.int16))
+    same = float((diff == 0).mean())
+    near = float((diff <= 1).mean())
+    log(f"phase 12 ({part}) _cli serve --sp {' '.join(extra)} under "
+        f"torch.distributed.run ({P12_WORLD} gloo ranks): POST /getImage -> "
+        f"{c[0]['post_status']} {c[0]['location']} in "
+        f"{c[0]['post_ms']:.1f} ms, GET /result "
+        f"{c[0]['result_page']}, result image {c[0]['result_image']}; "
+        f"the sp session's uint8 answer against the one-process "
+        f"session's at the small hole: max |d| {diff.max()} level(s), mean "
+        f"{diff.mean():.4f}, {same:.4%} equal, {near:.4%} within 1 level; "
+        f"calls rank 0 {c[0]['calls']}, follower {c[1]['calls']};"
+        f" grids {c[0]['grid']} / {c[1]['grid']}; both left the group: "
+        f"{[x['group_left'] for x in c]}; {c_s:.1f} s  [{card}]")
+    check(c[0]["post_status"] == 302 and c[0]["location"] == "/result",
+          f"({part}) POST /getImage -> 302 /result")
+    check(c[0]["result_page"] == ["200 OK", True]
+          and c[0]["result_image"] == [s, s],
+          f"({part}) /result shows the result image")
+    if int8:
+        limit = max(INT8_GAP * 127.5, int8_env)
+        med = statistics.median(d_draws)
+        log(f"phase 12 ({part}) the sp session's answers at the image and "
+            f"4 ulp nudges ({len(d_draws)} draws) against the one-process "
+            f"int8 session's at the same images: mean |d| "
+            + " ".join(f"{v:.3f}" for v in d_draws) + f" levels, median "
+            f"{med:.3f} (limit {limit:.2f}: {INT8_GAP * 127.5:.2f}, or the "
+            f"one-process int8 serving function's largest mean change over "
+            f"{len(INT8_NUDGES)} nudges of the image by 1 to "
+            f"{len(INT8_NUDGES) // 2} ulps, {int8_env:.2f})")
+        check(med <= limit, f"({part}) int8 sp answers within the mean "
+              "limit of the one-process int8 session's")
+    else:
+        check(diff.max() <= 1 and same >= 0.999,
+              f"({part}) sp answer within 1 level of the plain session's")
+    check(c[1]["calls"] == c[0]["calls"] >= 3
+          and c[0]["grid"] == [1, P12_WORLD, 0, 0]
+          and c[1]["grid"] == [1, P12_WORLD, 0, 1]
+          and all(x["group_left"] for x in c),
+          f"({part}) the follower runs every call and leaves cleanly")
+    check(all(x["launches"] == {"scan_stream": c[0]["calls"],
+                                "kbar_build": 0} for x in c),
+          f"({part}) one scan launch a call on each rank")
+    return {"sp_cli_serve_int8" if int8 else "sp_cli_serve": {
+        k: sum(x["launches"][k] for x in c)
+        for k in ("scan_stream", "kbar_build")}}
 
 
 def spatial_partitioning(dev, card: str, p9_cfg, epoch: int, small_req,
@@ -2495,12 +3156,13 @@ def spatial_partitioning(dev, card: str, p9_cfg, epoch: int, small_req,
     TF32 off.  (a) two gloo ranks sharing the card serve one request's
     rows on phase 5's weights, against the one-process forward; (b) the
     1 x 2 grid's train step at global B=8 in instance norm and
-    norm='batch', against the one-process step; (c) `_cli serve --sp`
-    under torch.distributed.run on two gloo ranks; (d) a group of one over
-    NCCL, bit for bit with the plain path, and what the SP builders cost
-    there.  The two-rank times share one card and move rows through the
-    host: they are no scaling figure.  Returns the kernels' launches by
-    path."""
+    norm='batch' (and with the pack modes, (e)), against the one-process
+    step; (c) `_cli serve --sp` under torch.distributed.run on two gloo
+    ranks, and (c') with --quant int8; (d) a group of one over NCCL, bit
+    for bit with the plain path, and what the SP builders cost there; (e)
+    int8 and packed requests in (a)'s ranks.  The two-rank times share
+    one card and move rows through the host: they are no scaling figure.
+    Returns the kernels' launches by path."""
     import torch
     import torch.distributed as dist
     from deepinpainting_torch.config import Config
@@ -2533,6 +3195,41 @@ def spatial_partitioning(dev, card: str, p9_cfg, epoch: int, small_req,
             env_B = np.abs(infer(*models, imgf * (1.0 + DP_NUDGE), mask, ref
                                  )[0].cpu().numpy()
                            - infer(*models, imgf, mask, ref)[0].cpu().numpy())
+            # (e): the small request with the pack modes
+            rewrites, undo = count_rewrites()
+            try:
+                e_packed = packed_request(
+                    TI.make_inference_fn(p9_cfg.replace(
+                        pack_small_cin=True, pack_out=True), dev), models,
+                    small_req, rewrites)
+            finally:
+                undo()
+            # (e): the one-process int8 forward at SP_INT8_DRAWS' images,
+            # and int8's own chaos, its largest mean change over
+            # INT8_NUDGES (fake_B and fake_P); (c'): the same in uint8
+            # levels of the serving function at the small hole
+            qcfg = p9_cfg.replace(quant="int8")
+            q_infer = TI.make_inference_fn(qcfg, dev)
+            e_draws, e_env = {}, {}
+            for n, (img, mask, ref) in reqs.items():
+                imgf = img.astype(np.float32) / 127.5 - 1.0
+                run = lambda e: [t.cpu().numpy() for t in q_infer(
+                    *models, imgf * np.float32(1.0 + e), mask, ref)]
+                e_draws[n] = [run(e) for e in SP_INT8_DRAWS]
+                moved = [run(e) for e in INT8_NUDGES]
+                e_env[n] = {k: max(float(np.abs(m[i] - e_draws[n][0][i])
+                                         .mean()) for m in moved)
+                            for i, k in enumerate("BP")}
+            q_serve = TI.make_serving_fn(qcfg, dev)
+            img, mask, ref = small_req
+            imgf = img.astype(np.float32) / 127.5 - 1.0
+            level = lambda e: q_serve(*models, imgf * np.float32(1.0 + e),
+                                      mask, ref).cpu().numpy().astype(
+                                          np.int16)
+            at = level(0.0)
+            e_levels = max(float(np.abs(level(e) - at).mean())
+                           for e in INT8_NUDGES)
+            del q_infer, q_serve
         t0 = time.perf_counter()
         run_children(sp_infer_rank, [(r, f"file://{root}/rendezvous_a", root,
                                       p9_cfg, epoch)
@@ -2588,6 +3285,8 @@ def spatial_partitioning(dev, card: str, p9_cfg, epoch: int, small_req,
               "one-process forward's")
         figures["a"] = {"p50": p50, "collectives": n_coll,
                         "bytes": {k: b for k, (_, b) in coll.items()}}
+        paths.update(sp_int8_check(card, ranks, whole, e_draws, e_env))
+        paths.update(sp_packed_check(card, ranks, whole, e_packed))
         paths["sp_gloo_infer"] = {
             "scan_stream": sum(x[name]["launches"]["scan_stream"]
                                for x in ranks for name in reqs)
@@ -2597,68 +3296,18 @@ def spatial_partitioning(dev, card: str, p9_cfg, epoch: int, small_req,
         torch.cuda.empty_cache()
 
         # -- (b) the 1 x 2 grid's train step --
-        figures["b"], paths["sp_gloo_steps"] = sp_train_steps(
+        figures["b"], step_launched = sp_train_steps(
             dev, card, s, small_batch, plain_ms, bn_size, root)
+        paths["sp_gloo_steps"] = {
+            k: sum(v[k] for label, v in step_launched.items()
+                   if label != "packed") for k in ("scan_stream", "kbar_build")}
+        paths["sp_gloo_packed_step"] = step_launched["packed"]
 
-        # -- (c) `_cli serve --sp` under torch.distributed.run --
-        result = os.path.join(root, "c")
-        img, mask, ref = small_req
-        np.savez(result + ".request.npz", image=img, mask=mask, ref=ref)
-        args = ["--sp", "--checkpoints_dir", p9_cfg.checkpoints_dir,
-                "--name", p9_cfg.name, "--which_epoch", str(epoch),
-                "--static_dir", os.path.join(root, "static")]
-        here = os.path.dirname(os.path.abspath(__file__))
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc_per_node", str(P12_WORLD), os.path.abspath(__file__),
-             "--phase12c", result, "--"] + args,
-            cwd=here, capture_output=True, text=True, timeout=CHILD_TIMEOUT_S,
-            env=dict(os.environ, PYTHONPATH=here))
-        c_s = time.perf_counter() - t0
-        for line in res.stdout.splitlines():
-            log(f"  (c) {line}")
-        check(res.returncode == 0, "phase 12 (c): torch.distributed.run "
-              f"exited {res.returncode}: {res.stderr[-3000:]}")
-        c = []
-        for r in range(P12_WORLD):
-            with open(f"{result}.rank{r}.json") as f:
-                c.append(json.load(f))
-        with np.load(result + ".answer.npz") as f:
-            sp_u8 = f["u8"]
-        with deterministic_cudnn():
-            plain = InferenceSession(p9_cfg, epoch, device=dev)
-            plain_u8 = plain.run(img, mask, ref)
-            plain.close()
-        diff = np.abs(sp_u8.astype(np.int16) - plain_u8.astype(np.int16))
-        same = float((diff == 0).mean())
-        log(f"phase 12 (c) _cli serve --sp under torch.distributed.run "
-            f"({P12_WORLD} gloo ranks): POST /getImage -> "
-            f"{c[0]['post_status']} {c[0]['location']} in "
-            f"{c[0]['post_ms']:.1f} ms, GET /result "
-            f"{c[0]['result_page']}, result image {c[0]['result_image']}; "
-            f"the sp session's uint8 answer against the plain session's at "
-            f"the small hole: max |d| {diff.max()} level(s), {same:.4%} "
-            f"equal; calls rank 0 {c[0]['calls']}, follower {c[1]['calls']};"
-            f" grids {c[0]['grid']} / {c[1]['grid']}; both left the group: "
-            f"{[x['group_left'] for x in c]}; {c_s:.1f} s  [{card}]")
-        check(c[0]["post_status"] == 302 and c[0]["location"] == "/result",
-              "(c) POST /getImage -> 302 /result")
-        check(c[0]["result_page"] == ["200 OK", True]
-              and c[0]["result_image"] == [s, s],
-              "(c) /result shows the result image")
-        check(diff.max() <= 1 and same >= 0.999,
-              "(c) sp answer within 1 level of the plain session's")
-        check(c[1]["calls"] == c[0]["calls"] >= 3
-              and c[0]["grid"] == [1, P12_WORLD, 0, 0]
-              and c[1]["grid"] == [1, P12_WORLD, 0, 1]
-              and all(x["group_left"] for x in c),
-              "(c) the follower runs every call and leaves cleanly")
-        check(all(x["launches"] == {"scan_stream": c[0]["calls"],
-                                    "kbar_build": 0} for x in c),
-              "(c) one scan launch a call on each rank")
-        paths["sp_cli_serve"] = {k: sum(x["launches"][k] for x in c)
-                                 for k in ("scan_stream", "kbar_build")}
+        # -- (c) `_cli serve --sp` under torch.distributed.run, and (c')
+        # the same with --quant int8 --
+        for part, extra in (("c", []), ("c'", ["--quant", "int8"])):
+            paths.update(sp_cli_serve(dev, card, part, extra, p9_cfg, epoch,
+                                      small_req, root, e_levels))
 
         # -- (d) a group of one over NCCL --
         dist.init_process_group("nccl", init_method=f"file://{root}/rdv_d",
@@ -3749,7 +4398,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     p11 = data_parallel(dev, card, small_batch, steady, center, strokes,
-                        small)
+                        small, p9_cfg, TRAIN_STEPS)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 12: spatial partitioning, 256 px, full width ---------------

@@ -11,10 +11,10 @@ deepinpainting_tpu/_cli.py::train, evaluate):
         --random_weights | --from_export DIR] [--max_batch 8] \
         [--quant int8] [--device cpu]
     python -m torch.distributed.run --standalone --nproc_per_node N \
-        -m deepinpainting_torch._cli serve --sp ...
+        -m deepinpainting_torch._cli serve --sp [--quant int8] ...
     python -m deepinpainting_torch._cli export --out DIR \
         [--which_epoch E | --random_weights] [--batches 1,8] [--quant int8] \
-        [--device cpu]
+        [--device cpu | --platforms cuda,cpu] [--attention_impl torch]
 
 Each runs on the card unless given --device cpu.  This module imports no
 torch at module level: the data loader's spawned workers import it as
@@ -206,25 +206,43 @@ def export(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="the device type the artifact serves on: 'cuda' "
                          "(default) or 'cpu'")
+    ap.add_argument("--platforms", default="",
+                    help="comma-separated device types to trace one graph "
+                         "each for, e.g. 'cuda,cpu', over one copy of the "
+                         "weights (in place of --device)")
+    ap.add_argument("--attention_impl", default="",
+                    choices=["", "cuda", "pallas", "torch", "lax"],
+                    help="the attention scan of the graph: 'cuda' (or the "
+                         "JAX name 'pallas', the default) calls the CUDA "
+                         "kernel's op; 'torch' (or 'lax') the plain "
+                         "recurrence's, on every device with no kernel")
     args = ap.parse_args(argv)
 
     import torch
 
     from .engine.checkpoint import CheckpointManager
-    from .engine.export_model import export_serving
+    from .engine.export_model import check_platforms, export_serving
     from .engine.inpaint import init_params
 
     cfg = _serving_config(args)
+    if args.attention_impl:
+        cfg = cfg.replace(attention_impl=args.attention_impl)
+    platforms = None
+    device = args.device
+    if args.platforms:
+        platforms = check_platforms(args.platforms.split(","))
+        # the weights load once, on the card if a graph is traced there
+        device = "cuda" if "cuda" in platforms else "cpu"
     if args.random_weights:
         models = init_params(cfg, torch.Generator().manual_seed(cfg.seed),
-                             args.device)
+                             device)
     else:
         # 46: the reference's serving default, as `serve` takes it
         epoch = 46 if args.which_epoch is None else args.which_epoch
-        models = CheckpointManager(cfg).restore_models(epoch, args.device)
+        models = CheckpointManager(cfg).restore_models(epoch, device)
     batches = [int(b) for b in args.batches.split(",") if b] or None
     out = export_serving(cfg, models, args.out, batch_sizes=batches,
-                         device=args.device)
+                         device=device, platforms=platforms)
     print(f"exported serving artifact -> {out}")
     return out
 

@@ -4,12 +4,11 @@ Field for field the same as the JAX package's Config (same names, same
 defaults), so one Config JSON loads in both packages.  The port keeps a copy
 rather than importing it: it must load without the JAX package present.
 
-Fields whose feature the port does not run yet (spatial partitioning,
-data parallelism over several processes) are kept for JSON compatibility;
 engine/inpaint.py::check_config, check_train_config and the trainer reject
-the values they cannot honour.  `quant='int8'` runs on every inference
+the values the port cannot honour.  `quant='int8'` runs on every inference
 entry point (training refuses it, as the JAX package does), and
-`pack_small_cin` / `pack_out` run everywhere (ops/convs.py).  `attention_impl` also takes the
+`pack_small_cin` / `pack_out` run everywhere (ops/convs.py), on one
+process, data-parallel ranks and spatially partitioned ones alike.  `attention_impl` also takes the
 port's own names: 'cuda' (the hand-written kernels; 'pallas' selects the
 same) and 'torch' (the plain PyTorch recurrences; 'lax' selects the same).
 """

@@ -10,7 +10,9 @@ Data-parallel (torch.distributed initialized, parallel/mesh.py): each rank
 runs the eval step on its rows of every padded global batch, the
 per-image metrics (and, for grids, the images) are gathered in rank order
 as host arrays, and the result is the same on every rank and the same as
-one process's on the same images.  Rank 0 alone prints and writes grids.
+one process's on the same images, int8 included: each int8 conv scales by
+the maximum over the global batch (ops/quant.py), as one process's does.
+Rank 0 alone prints and writes grids.
 
 Spatially partitioned (cfg.sp_devices > 1 in a group; one process
 evaluates whole images whatever sp_devices says, as the JAX package's

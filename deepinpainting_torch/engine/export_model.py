@@ -8,17 +8,29 @@ next to the config and the three networks' flat .npz weights;
 make_serving_fn's signature, (G, P, vgg, image_u8, mask_u8, ref_u8) ->
 uint8, that serves any request batch.
 
+Platforms.  `platforms` (jax.export's names for the two device types the
+port serves on, "cuda" and "cpu") traces one graph per platform, each on
+a device of its type, over the artifact's one copy of the weights, and
+load_serving picks the graph of its device's type.  A graph traces on
+its own platform only: a "cuda" graph needs the card, and on a machine
+without one the export is refused by name (a graph traced on the CPU is
+another graph).  With no `platforms` the artifact holds one graph, for
+the device type it was exported on (the layout below, format 2).
+
 Artifact directory layout::
 
-    meta.json         {"format": 2, "batch": "symbolic" | [1, 8],
-                       "device": "cuda" | "cpu"}
-    serving.pt2       symbolic-batch graph (torch.export.save)
+    meta.json         {"format": 3, "platforms": ["cuda", "cpu"],
+                       "batch": {"cuda": "symbolic", "cpu": [1, 8]}}
+    serving_{p}.pt2   platform p's symbolic-batch graph (torch.export.save)
       — or —
-    serving_b{n}.pt2  one fixed-batch graph per n in meta's list
+    serving_{p}_b{n}.pt2   one fixed-batch graph per n in meta's list
     config.json       the Config the function was traced with
     params_G.npz / params_P.npz / vgg.npz
                       flat weights in the JAX package's key layout
                       (engine/checkpoint.py::export_network_npz)
+
+or, with no `platforms`, meta.json {"format": 2, "batch": "symbolic" |
+[1, 8], "device": "cuda" | "cpu"} and serving.pt2 / serving_b{n}.pt2.
 
 Weights.  The graph takes G's, P's and VGG's state_dicts as arguments, as
 the JAX graph takes its parameter trees, so a .pt2 file carries no weight
@@ -28,26 +40,31 @@ files are the artifact's one copy of the weights.  At load each loads
 strictly into its network built on the meta device (no weight is
 allocated or drawn before it), and the tensors move to the device once.
 
-Batch.  By default the graph is traced with a symbolic batch dimension,
+Batch.  By default each graph is traced with a symbolic batch dimension,
 Dim("b", min=1), at an example batch of 2 (a traced batch of 1 would
-become a constant of the graph).  If that export fails, the fixed set
-FALLBACK_BATCHES is exported instead, and the reason is printed; an
-explicit `batch_sizes` forces the fixed set.  A fixed-set artifact serves
-any batch by pad-and-chunk dispatch (`_make_fixed_dispatch`).  Errors from
-writing the files always propagate.
+become a constant of the graph).  If that export fails for a platform,
+the fixed set FALLBACK_BATCHES is exported for it instead, and the
+platform and the reason are printed; an explicit `batch_sizes` forces
+the fixed set.  A fixed-set graph serves any batch by pad-and-chunk
+dispatch (`_make_fixed_dispatch`).  Any other failure to trace a
+requested platform fails the export.  Errors from writing the files
+always propagate.
+
+Attention.  attention_impl 'cuda' (or 'pallas') traces one
+`deepinpainting::scan_stream` node, the custom op that launches the
+kernel on the card (ops/attention.py); 'torch' (or 'lax', the JAX
+package's CPU-portable graph) traces one `deepinpainting::scan_stream_plain`
+node, the plain recurrence on every device with no kernel library.
 
 Differences from the JAX artifact:
-  * it is not free of model code: the graph calls the port's custom op
-    `deepinpainting::scan_stream` (ops/attention.py), so loading needs the
-    port's op library, which load_serving imports, and on the card the
-    nvcc-built kernel library, which _build.py compiles at the op's first
-    call.  JAX's artifact needs no model code.
-  * an artifact serves on the device type it was exported on: the graph
-    moves its inputs to that device.  load_serving refuses another device
-    type by name (the counterpart of JAX's `platforms`).
-  * attention_impl='torch' is refused: it exists to force the plain
-    versions on the card, and a traced plain scan would unroll its Python
-    loop into N steps of the graph.
+  * it is not free of model code: the graph calls the port's custom ops,
+    so loading needs the port's op library, which load_serving imports,
+    and the 'cuda' graph of a 'cuda' attention on the card the nvcc-built
+    kernel library, which _build.py compiles at the op's first call.
+    JAX's artifact needs no model code.
+  * a graph moves its inputs to its platform's device: load_serving
+    refuses a device type the artifact has no graph for, by naming the
+    ones it has.
   * export traces under no_grad with the weights as plain tensor inputs,
     so the attention takes its kbar-free primal: the graph calls the scan
     op and never the kbar op.
@@ -63,7 +80,7 @@ from __future__ import annotations
 import json
 import os
 from types import SimpleNamespace
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,7 +88,7 @@ import torch.nn as nn
 
 from ..config import Config
 from ..device import DeviceLike, resolve_device
-from ..ops.attention import OP_NAMESPACE, check_impl
+from ..ops.attention import OP_NAMESPACE
 from .checkpoint import export_network_npz
 from .inpaint import Models, _as_tensor, build_models, serving_body
 
@@ -81,10 +98,12 @@ CFG_FILE = "config.json"
 NETS = ("G", "P", "vgg")
 NPZ_FILES = ("params_G.npz", "params_P.npz", "vgg.npz")
 FALLBACK_BATCHES = (1, 8)
+PLATFORMS = ("cuda", "cpu")
 # the graph's constant tensors are the code's literals (ops/masks.py's
 # three hole-fill values); a network tensor would be far larger
 _MAX_LITERALS = 64
 SCAN_OP = f"{OP_NAMESPACE}.scan_stream"
+PLAIN_SCAN_OP = f"{OP_NAMESPACE}.scan_stream_plain"
 KBAR_OP = f"{OP_NAMESPACE}.kbar_build"
 
 
@@ -133,10 +152,12 @@ def _example(cfg: Config, batch: int, dev: torch.device):
 
 def _export(cfg: Config, models: Models, dev: torch.device, batch,
             ) -> torch.export.ExportedProgram:
-    """The serving graph at `batch`: an int, or None for a symbolic batch
-    traced at an example batch of 2."""
+    """The serving graph on `dev` at `batch`: an int, or None for a
+    symbolic batch traced at an example batch of 2.  The weights are
+    models' tensors moved to `dev`."""
     module = _Serving(_Nets(models, serving_body(cfg, dev)))
-    sds = tuple(_weights(net) for net in models)
+    sds = tuple({k: v.to(dev) for k, v in _weights(net).items()}
+                for net in models)
     example = _example(cfg, batch or 2, dev)
     dims = None
     if batch is None:
@@ -163,40 +184,70 @@ def graph_ops(ep: torch.export.ExportedProgram) -> set:
             if n.op == "call_function"}
 
 
-def export_serving(cfg: Config, models: Models, out_dir: str,
-                   batch_sizes: Optional[Sequence[int]] = None,
-                   device: DeviceLike = None) -> str:
-    """Trace the serving function of `models` (G, P, vgg on `device`, in
-    eval mode) and write the artifact into `out_dir`.  `batch_sizes` None
-    tries a symbolic batch first and falls back to FALLBACK_BATCHES; an
-    explicit sequence exports that fixed set.  Returns `out_dir`."""
-    dev = resolve_device(device)
-    cfg = cfg.replace(is_train=False, batch_size=1)
-    if check_impl(cfg.attention_impl) == "torch":
-        raise ValueError(
-            "attention_impl='torch' cannot be exported: it forces the plain "
-            "scan, whose loop over N positions would unroll into the graph")
-    os.makedirs(out_dir, exist_ok=True)
-    meta = {"format": 2, "device": dev.type}
-    graphs = {}
+def check_platforms(platforms: Sequence[str]) -> List[str]:
+    """`platforms` without repeats, in order, each one of PLATFORMS;
+    'cuda' only where a card can trace its graph.  Raises ValueError or
+    RuntimeError naming the platform."""
+    out = list(dict.fromkeys(platforms))
+    bad = [p for p in out if p not in PLATFORMS]
+    if not out or bad:
+        raise ValueError(f"platforms must name one or more of "
+                         f"{list(PLATFORMS)}, got {list(platforms)!r}")
+    if "cuda" in out and not torch.cuda.is_available():
+        raise RuntimeError(
+            "platform 'cuda' needs a CUDA device to trace its graph and none "
+            "is available; export it where a card is (a graph traced on "
+            "the CPU would be the CPU's graph)")
+    return out
+
+
+def _trace(cfg: Config, models: Models, dev: torch.device,
+           batch_sizes: Optional[Sequence[int]], stem: str):
+    """The graphs of one platform, {file name: ExportedProgram}, and its
+    batch entry of meta.json ("symbolic" or the sorted fixed sizes)."""
     if batch_sizes is None:
         try:
-            graphs[FN_FILE] = _export(cfg, models, dev, None)
-            meta["batch"] = "symbolic"
-        except Exception as e:      # tracing only: the writes come below
-            print(f"[export] symbolic-batch export failed "
+            return {f"{stem}.pt2": _export(cfg, models, dev, None)}, \
+                "symbolic"
+        except Exception as e:      # tracing only: the writes come later
+            print(f"[export] {dev.type}: symbolic-batch export failed "
                   f"({type(e).__name__}); exporting the fixed batch set "
-                  f"{list(FALLBACK_BATCHES)} instead: {str(e)[:300]}",
-                  flush=True)
+                  f"{list(FALLBACK_BATCHES)} for {dev.type} instead: "
+                  f"{str(e)[:300]}", flush=True)
             batch_sizes = FALLBACK_BATCHES
-    if batch_sizes is not None:
-        sizes = sorted({int(n) for n in batch_sizes})
-        if not sizes or sizes[0] < 1:
-            raise ValueError(f"batch_sizes must be positive ints, got "
-                             f"{batch_sizes!r}")
-        for n in sizes:
-            graphs[f"serving_b{n}.pt2"] = _export(cfg, models, dev, n)
-        meta["batch"] = sizes
+    sizes = sorted({int(n) for n in batch_sizes})
+    if not sizes or sizes[0] < 1:
+        raise ValueError(f"batch_sizes must be positive ints, got "
+                         f"{batch_sizes!r}")
+    return {f"{stem}_b{n}.pt2": _export(cfg, models, dev, n)
+            for n in sizes}, sizes
+
+
+def export_serving(cfg: Config, models: Models, out_dir: str,
+                   batch_sizes: Optional[Sequence[int]] = None,
+                   device: DeviceLike = None,
+                   platforms: Optional[Sequence[str]] = None) -> str:
+    """Trace the serving function of `models` (G, P, vgg in eval mode)
+    and write the artifact into `out_dir`.  `platforms` (e.g. ["cuda",
+    "cpu"]) traces one graph per device type, from models' weights
+    wherever they are; None traces one on `device`, where the models must
+    be.  `batch_sizes` None tries a symbolic batch first and falls back to
+    FALLBACK_BATCHES, per platform; an explicit sequence exports that
+    fixed set.  Returns `out_dir`."""
+    cfg = cfg.replace(is_train=False, batch_size=1)
+    if platforms is None:
+        dev = resolve_device(device)
+        graphs, batch = _trace(cfg, models, dev, batch_sizes, "serving")
+        meta = {"format": 2, "device": dev.type, "batch": batch}
+    else:
+        meta = {"format": 3, "platforms": check_platforms(platforms),
+                "batch": {}}
+        graphs = {}
+        for p in meta["platforms"]:
+            g, meta["batch"][p] = _trace(cfg, models, resolve_device(p),
+                                         batch_sizes, f"serving_{p}")
+            graphs.update(g)
+    os.makedirs(out_dir, exist_ok=True)
     for name, ep in graphs.items():
         torch.export.save(ep, os.path.join(out_dir, name))
     with open(os.path.join(out_dir, META_FILE), "w") as f:
@@ -257,7 +308,7 @@ def _make_fixed_dispatch(calls):
 def load_serving(artifact_dir: str, device: DeviceLike = None
                  ) -> SimpleNamespace:
     """Load an export_serving artifact onto `device` ("cuda" unless given
-    "cpu"), which must be of the device type it was exported on.
+    "cpu"): the graph of its device type, which the artifact must hold.
 
     Returns a namespace with `.cfg`, `.G/.P/.vgg` (the weights on the
     device, as the graph takes them), `.batch` ("symbolic" or the exported
@@ -273,11 +324,20 @@ def load_serving(artifact_dir: str, device: DeviceLike = None
             "create one with export_serving or `_cli export`")
     with open(meta_path) as f:
         meta = json.load(f)
-    if meta.get("device") != dev.type:
+    if "platforms" in meta:
+        if dev.type not in meta["platforms"]:
+            raise ValueError(
+                f"the artifact at [{artifact_dir}] holds graphs for the "
+                f"platforms {meta['platforms']} and none for {dev.type!r}; "
+                f"export it again with {dev.type!r} among its platforms")
+        stem, batch = f"serving_{dev.type}", meta["batch"][dev.type]
+    elif meta.get("device") != dev.type:
         raise ValueError(
             f"the artifact at [{artifact_dir}] was exported on device type "
             f"{meta.get('device')!r} and serves there only, not on "
             f"{dev.type!r}; export it again on {dev.type!r}")
+    else:
+        stem, batch = "serving", meta["batch"]
     cfg = Config.load(os.path.join(artifact_dir, CFG_FILE))
     weights = _load_weights(cfg, artifact_dir, dev)
 
@@ -290,15 +350,14 @@ def load_serving(artifact_dir: str, device: DeviceLike = None
                                    for x in (image, mask, ref)))
         return run
 
-    if meta["batch"] == "symbolic":
+    if batch == "symbolic":
         exported = {"symbolic": torch.export.load(
-            os.path.join(artifact_dir, FN_FILE))}
+            os.path.join(artifact_dir, f"{stem}.pt2"))}
         call = runner(exported["symbolic"])
     else:
         exported = {int(n): torch.export.load(
-            os.path.join(artifact_dir, f"serving_b{n}.pt2"))
-            for n in meta["batch"]}
+            os.path.join(artifact_dir, f"{stem}_b{n}.pt2")) for n in batch}
         call = _make_fixed_dispatch({n: runner(ep)
                                      for n, ep in exported.items()})
-    return SimpleNamespace(cfg=cfg, batch=meta["batch"], device=dev,
+    return SimpleNamespace(cfg=cfg, batch=batch, device=dev,
                            exported=exported, call=call, **weights)

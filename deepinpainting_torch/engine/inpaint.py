@@ -32,7 +32,8 @@ Data flow, as the JAX package's:
                pack_out apply to every conv of the networks an entry point
                runs, as the JAX package's conv_modes(cfg) applies them:
                each entry point runs its body inside ops/convs.py's
-               conv_modes(cfg).
+               conv_modes(cfg), with a group or a Grid too (int8 scales
+               by the maximum over the global batch and the whole image).
   group      : the train and eval steps take an optional torch.distributed
                group (parallel/mesh.py): the step is then one rank's share
                of the step on the global batch, whose relativistic means
@@ -79,9 +80,8 @@ from ..models.unet_ipsr import UnetGeneratorIPSR
 from ..models.vgg16 import Vgg16
 from ..ops import masks as M
 from ..ops.attention import check_impl
-from ..ops.convs import (INIT_TYPES, NORMS, InstanceNorm, check_spatial_modes,
-                         conv_modes, frozen_running_stats, init_weight_,
-                         modes_of)
+from ..ops.convs import (INIT_TYPES, NORMS, InstanceNorm, conv_modes,
+                         frozen_running_stats, init_weight_)
 from ..parallel.collectives import (all_reduce_mean, as_grid, full_rows,
                                     own_rows, replicated, use_grid)
 from .state import TrainState, create_train_state
@@ -298,15 +298,6 @@ def _masks(cfg: Config, mask: torch.Tensor):
     return own_rows(full, dim=1), fmask, flag
 
 
-def _check_grid(cfg: Config, group):
-    """The Grid of `group` (parallel/collectives.py::as_grid), after
-    refusing the conv modes that do not run on slabs."""
-    grid = as_grid(group)
-    if grid is not None and grid.n_sp > 1:
-        check_spatial_modes(modes_of(cfg))
-    return grid
-
-
 def resolve_mask(cfg: Config, mask: torch.Tensor) -> torch.Tensor:
     """'center' ignores the input mask and uses the fixed center square;
     'random' uses it as it is."""
@@ -391,7 +382,7 @@ def make_inference_fn(cfg: Config, device: DeviceLike = None, group=None):
     rank's slabs of rows, and so are fake_B and fake_P."""
     dev = resolve_device(device)
     return torch.inference_mode()(
-        _inference_body(cfg, dev, _check_grid(cfg, group)))
+        _inference_body(cfg, dev, as_grid(group)))
 
 
 def to_uint8(x: torch.Tensor) -> torch.Tensor:
@@ -404,7 +395,7 @@ def serving_body(cfg: Config, device: DeviceLike = None, group=None):
     """The body of make_serving_fn, with no grad-mode context of its own:
     make_serving_fn runs it under inference_mode, and
     engine/export_model.py traces it under no_grad."""
-    grid = _check_grid(cfg, group)
+    grid = as_grid(group)
     infer = _inference_body(cfg, resolve_device(device), grid)
 
     def serve_fn(G, P, vgg, gt, mask, ref):
@@ -517,7 +508,7 @@ def make_train_step(cfg: Config, device: DeviceLike = None, group=None):
     check_train_config(cfg)
     impl = check_impl(cfg.attention_impl)
     dt = compute_dtype(cfg)
-    grid = _check_grid(cfg, group)
+    grid = as_grid(group)
     if cfg.grad_accum > 1:
         return _make_accum_train_step(cfg, dev, impl, dt, grid)
     world = None if grid is None else grid.world
@@ -733,7 +724,7 @@ def make_eval_step(cfg: Config, device: DeviceLike = None, group=None):
     check_config(cfg)
     impl = check_impl(cfg.attention_impl)
     dt = compute_dtype(cfg)
-    grid = _check_grid(cfg, group)
+    grid = as_grid(group)
     world = None if grid is None else grid.world
 
     @torch.inference_mode()

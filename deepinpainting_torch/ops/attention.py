@@ -22,7 +22,9 @@ Steps 1-3 (`prep`) are one large product plus reductions and stay plain
 PyTorch, as the JAX package leaves them to XLA.  Step 4 is the sequential
 part, the custom op `deepinpainting::scan_stream`: on a CUDA tensor the
 hand-written kernel in ops/attention_cuda.py, on a CPU tensor
-`scan_stream_reference` below.
+`scan_stream_reference` below.  attention_impl='torch' runs the plain
+version on every device, in the primal as the op
+`deepinpainting::scan_stream_plain`.
 
 Inference needs nothing more: the scan's `out` is the result.  Under
 differentiation the forward also materialises the attention matrix
@@ -157,6 +159,23 @@ def _scan_stream_fake(flag, vmax, pn, known):
             torch.empty_like(vmax))
 
 
+@torch.library.custom_op(f"{OP_NAMESPACE}::scan_stream_plain",
+                         mutates_args=())
+def scan_stream_plain(flag: torch.Tensor, vmax: torch.Tensor,
+                      pn: torch.Tensor, known: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain recurrence as the custom op
+    `deepinpainting::scan_stream_plain`, on every device:
+    `scan_stream_reference`, which attention_impl='torch' runs.  An op of
+    its own so that a traced graph (engine/export_model.py) holds it as
+    one node, where tracing the reference would unroll its loop over N.
+    Returns (out [B,N,C], a [B,N], b [B,N]), new tensors."""
+    return scan_stream_reference(flag, vmax, pn, known)
+
+
+scan_stream_plain.register_fake(_scan_stream_fake)
+
+
 def kbar_build_reference(flag: torch.Tensor, ind: torch.Tensor,
                          a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch attention-matrix recurrence, the kbar kernel's plain
@@ -285,7 +304,7 @@ def ipsr_attention_batched(feat: torch.Tensor, ref: torch.Tensor,
     _, Pn, _, vmax, known = prep(_rows(feat), _rows(ref), flag,
                                  known_replacement)
     scan = (scan_stream if check_impl(impl) == "cuda"
-            else scan_stream_reference)
+            else scan_stream_plain)
     out, _, _ = scan(flag.contiguous(), vmax.contiguous(), Pn.contiguous(),
                      known.contiguous())
     return out.transpose(1, 2).reshape(bsz, c, h, w).to(feat.dtype)

@@ -51,9 +51,14 @@ divides; the U-Nets gather the levels where it does not.  The instance
 norm sums each (N, C) over every slab (the JAX layer's two reductions),
 a train-mode BatchNorm over the whole grid, the dropout draws the whole
 image's mask and keeps its rows, and a bilinear resize runs on the
-gathered image.  The conv modes pad H symmetrically (the pack rewrites)
-or scale by a per-tensor maximum (int8), so no mode runs on slabs: a conv
-refuses them there.
+gathered image.  The conv modes run on slabs as in one process, in the
+same order: a rewrite pads the halo'd slab's H by nothing (a transposed
+conv's takes the layer's padding, and its output is cut as above), the
+pack gates read the whole image's height (slab rows times the sp size),
+as the JAX package's program does, and int8's scale is the whole
+tensor's maximum (ops/quant.py).  A slab whose own rows do not suit a
+gated rewrite (hpack2 needs an even count) takes the direct conv, which
+computes the same sums.
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel.collectives import (all_reduce_sum, current_group,
+from ..parallel.collectives import (all_reduce_sum, batch_group,
                                     current_spatial, full_rows,
                                     halo_exchange, own_rows, replicated)
 from . import quant
@@ -161,15 +166,23 @@ def conv_modes(cfg):
 
 
 # ---- the pack rewrites (NCHW; weights in torch layout) ---------------------
+#
+# A rewrite takes its H padding `ph` apart from the layer's `padding`, and
+# its gate the whole image's height `full_h` apart from x's: one process
+# pads H by the layer's padding (ph None) and holds the whole image
+# (full_h None); a slab of rows (spatial partitioning) arrives with its
+# halo, pads H by nothing and gates on its rows times the sp size, as the
+# JAX package's program, which sees whole images, gates.
 
-def _conv2d_space_to_depth(x, w, padding):
+def _conv2d_space_to_depth(x, w, padding, ph=None):
     """k4 s2 conv as space-to-depth(2) + a k2 s1 conv: output row h reads
     padded rows 2h..2h+3, the 2x2 blocks h and h+1, so with each block
     packed into channels the window is 2x2 at stride 1 and the reduction
     per tap is 4*Cin wide."""
     n, c = x.shape[:2]
     cout = w.shape[0]
-    xp = F.pad(x, (padding, padding, padding, padding))
+    ph = padding if ph is None else ph
+    xp = F.pad(x, (padding, padding, ph, ph))
     h2, w2 = xp.shape[2] // 2, xp.shape[3] // 2
     # channel (c, di, dj) of block (h2, w2)
     x2 = xp.reshape(n, c, h2, 2, w2, 2).permute(0, 1, 3, 5, 2, 4)
@@ -179,11 +192,12 @@ def _conv2d_space_to_depth(x, w, padding):
     return F.conv2d(x2, k2.reshape(cout, 4 * c, 2, 2))
 
 
-def _conv2d_tap_stack(x, w, padding):
+def _conv2d_tap_stack(x, w, padding, ph=None):
     """k x k s1 conv as kh*kw shifted tap planes + a 1x1 conv: the
     reduction goes Cin -> kh*kw*Cin."""
     cout, c, kh, kw = w.shape
-    xp = F.pad(x, (padding, padding, padding, padding))
+    ph = padding if ph is None else ph
+    xp = F.pad(x, (padding, padding, ph, ph))
     h, wd = xp.shape[2] - kh + 1, xp.shape[3] - kw + 1
     xs = torch.cat([xp[:, :, dh:dh + h, dw:dw + wd]
                     for dh in range(kh) for dw in range(kw)], dim=1)
@@ -192,41 +206,62 @@ def _conv2d_tap_stack(x, w, padding):
     return F.conv2d(xs, k1)
 
 
-def _packed_small_cin(x, w, stride, padding, dilation):
-    """Route an eligible tiny-Cin conv to its packed rewrite, else None."""
+def _packed_small_cin(x, w, stride, padding, dilation, ph=None,
+                      full_h=None):
+    """Route an eligible tiny-Cin conv to its packed rewrite, else None.
+    Gated on the whole image; x padded by ph must split into 2x2 blocks
+    too."""
     _, cin, kh, kw = w.shape
+    ph = padding if ph is None else ph
+    full_h = x.shape[2] if full_h is None else full_h
     if cin > _PACK_CIN_MAX or dilation != 1 or kh != kw or kh == 1:
         return None
     if stride == 1:
-        return _conv2d_tap_stack(x, w, padding)
-    if (stride == 2 and kh == 4 and (x.shape[2] + 2 * padding) % 2 == 0
-            and (x.shape[3] + 2 * padding) % 2 == 0):
-        return _conv2d_space_to_depth(x, w, padding)
+        return _conv2d_tap_stack(x, w, padding, ph)
+    if (stride == 2 and kh == 4 and (full_h + 2 * padding) % 2 == 0
+            and (x.shape[3] + 2 * padding) % 2 == 0
+            and (x.shape[2] + 2 * ph) % 2 == 0):
+        return _conv2d_space_to_depth(x, w, padding, ph)
     return None
 
 
-def _conv2d_hpack2(x, w):
-    """k3 s1 p1 conv as a [4, 3] stride-(2, 1) conv packing output rows 2i
-    and 2i+1 into 2*Cout channels: output row r of the strided conv reads
-    padded rows 2r..2r+3; taps 0..2 of that window give row 2r, taps 1..3
-    row 2r+1 (4/3 the MACs, the extra ones on zeros)."""
+def _conv2d_hpack2(x, w, ph=1):
+    """k3 s1 conv (W padding 1) as a [4, 3] stride-(2, 1) conv packing
+    output rows 2i and 2i+1 into 2*Cout channels: output row r of the
+    strided conv reads padded rows 2r..2r+3; taps 0..2 of that window give
+    row 2r, taps 1..3 row 2r+1 (4/3 the MACs, the extra ones on zeros).
+    It reads one zero row past the H padding, under a zero tap.  The
+    output's row count (H + 2 ph - 2) must be even."""
     co, c, _, kw = w.shape
     z = w.new_zeros((co, c, 1, kw))
     k2 = torch.cat([torch.cat([w, z], dim=2), torch.cat([z, w], dim=2)])
-    n, _, h, wd = x.shape
-    y = F.conv2d(F.pad(x, (1, 1, 1, 2)), k2, stride=(2, 1))
-    y = y.reshape(n, 2, co, h // 2, wd).permute(0, 2, 3, 1, 4)
-    return y.reshape(n, co, h, wd)
+    n, wd = x.shape[0], x.shape[3]
+    y = F.conv2d(F.pad(x, (1, 1, ph, ph + 1)), k2, stride=(2, 1))
+    h2 = y.shape[2]
+    y = y.reshape(n, 2, co, h2, wd).permute(0, 2, 3, 1, 4)
+    return y.reshape(n, co, 2 * h2, wd)
 
 
-def _packed_out_conv(x, w, stride, padding, dilation):
-    """Route an eligible high-resolution k3s1 conv to hpack2, else None."""
+def _hpack2_fits(full_h: int, rows: int) -> bool:
+    """hpack2's gate: the whole image is tall and even (the JAX package's
+    test), and this call's `rows` of output pair up."""
+    return full_h >= _PACK_OUT_MIN_HW and full_h % 2 == 0 and rows % 2 == 0
+
+
+def _packed_out_conv(x, w, stride, padding, dilation, ph=None, full_h=None):
+    """Route an eligible high-resolution k3s1 conv to hpack2, else None
+    (gated on the whole image, as _packed_small_cin)."""
     _, cin, kh, kw = w.shape
+    ph = padding if ph is None else ph
+    full_h = x.shape[2] if full_h is None else full_h
     if (stride != 1 or dilation != 1 or kh != 3 or kw != 3 or padding != 1
-            or cin < _PACK_OUT_MIN_CIN or x.shape[2] < _PACK_OUT_MIN_HW
-            or x.shape[2] % 2 != 0):
+            or cin < _PACK_OUT_MIN_CIN
+            or not _hpack2_fits(full_h, x.shape[2] + 2 * ph - 2)):
         return None
-    return _conv2d_hpack2(x, w)
+    # ph 1 is hpack2's own default: one process calls it with (x, w) as it
+    # always has, the call that tests/test_torch_pack.py::
+    # test_recompute_in_another_thread_takes_the_packed_path spies on
+    return _conv2d_hpack2(x, w) if ph == 1 else _conv2d_hpack2(x, w, ph)
 
 
 def _deconv_dpack4(x, wt):
@@ -254,19 +289,21 @@ def _deconv_dpack4(x, wt):
     return y[:, :, 1:2 * h + 1, 1:2 * wd + 1]
 
 
-def _packed_out_deconv(x, wt, stride, padding):
+def _packed_out_deconv(x, wt, stride, padding, full_h=None):
     """Route an eligible deconv to its packed rewrite, else None: k4 s2 p1
     with a narrow Cout -> dpack4; k3 s1 p1 is the k3s1p1 conv of the
-    flipped, transposed kernel -> hpack2."""
+    flipped, transposed kernel -> hpack2.  Gated on the whole image's
+    input height, as _packed_small_cin."""
     cin, cout, kh, kw = wt.shape
+    full_h = x.shape[2] if full_h is None else full_h
     if (stride == 2 and padding == 1 and kh == 4 and kw == 4
             and cout <= _PACK_OUT_DECONV_MAX_COUT
             and cin >= _PACK_OUT_MIN_CIN
-            and 2 * x.shape[2] >= _PACK_OUT_MIN_HW):
+            and 2 * full_h >= _PACK_OUT_MIN_HW):
         return _deconv_dpack4(x, wt)
     if (stride == 1 and padding == 1 and kh == 3 and kw == 3
-            and cin >= _PACK_OUT_MIN_CIN and x.shape[2] >= _PACK_OUT_MIN_HW
-            and x.shape[2] % 2 == 0):
+            and cin >= _PACK_OUT_MIN_CIN
+            and _hpack2_fits(full_h, x.shape[2])):
         return _conv2d_hpack2(x, wt.flip(2, 3).transpose(0, 1))
     return None
 
@@ -275,23 +312,45 @@ def _with_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     return y if bias is None else y + _channels(bias, y.dtype)
 
 
+def _moded_conv2d(x, w, bias, stride, ph, padding, dilation, full_h):
+    """The conv under the conv modes in force, in the JAX package's order
+    (int8, pack_small_cin, pack_out), or None for the direct conv.  x is
+    padded by ph in H and the layer's `padding` in W; full_h is the whole
+    image's height (the gates')."""
+    modes = current_modes()
+    if modes.int8 and quant.eligible(w.shape[1], w.shape[0]):
+        return quant.conv2d_int8(x, w, bias, stride, (ph, padding), dilation)
+    if modes.pack_small_cin:
+        y = _packed_small_cin(x, w, stride, padding, dilation, ph, full_h)
+        if y is not None:
+            return _with_bias(y, bias)
+    if modes.pack_out:
+        y = _packed_out_conv(x, w, stride, padding, dilation, ph, full_h)
+        if y is not None:
+            return _with_bias(y, bias)
+    return None
+
+
+def _moded_conv_transpose2d(x, w, bias, stride, padding, full_h):
+    """The transposed conv under the conv modes in force (int8, pack_out),
+    or None for the direct one; full_h is the whole image's input
+    height."""
+    modes = current_modes()
+    if modes.int8 and quant.eligible(w.shape[0], w.shape[1]):
+        return quant.conv_transpose2d_int8(x, w, bias, stride, padding)
+    if modes.pack_out:
+        y = _packed_out_deconv(x, w, stride, padding, full_h)
+        if y is not None:
+            return _with_bias(y, bias)
+    return None
+
+
 # ---- convs on a slab of rows (spatial partitioning) ------------------------
-
-def check_spatial_modes(modes: ConvModes) -> None:
-    """Refuse, by name, the conv modes that do not run on slabs."""
-    if modes != ConvModes():
-        on = [name for name, flag in (("quant='int8'", modes.int8),
-                                      ("pack_small_cin", modes.pack_small_cin),
-                                      ("pack_out", modes.pack_out)) if flag]
-        raise NotImplementedError(
-            f"{' and '.join(on)} do(es) not run under spatial partitioning "
-            "(sp_devices > 1): the pack rewrites pad H symmetrically and "
-            "int8 scales by the whole tensor's maximum")
-
 
 def _slab_conv2d(x, w, bias, stride, padding, dilation, sp):
     """Conv2d of a slab (see the module docstring); bias None or in x's
-    dtype is fused, another is added after as Conv2d adds it."""
+    dtype is fused, another is added after as Conv2d adds it.  The conv
+    modes run on the halo'd slab, gated on the whole image's height."""
     k, h = w.shape[2], x.shape[2]
     above = padding[0]
     below = (k - 1) * dilation[0] - above - stride[0] + 1
@@ -301,14 +360,19 @@ def _slab_conv2d(x, w, bias, stride, padding, dilation, sp):
             f"on a slab of {h} rows under spatial partitioning (the slab "
             "height must be a multiple of the stride)")
     xh = halo_exchange(x, sp.group, sp.index, sp.size, above, below)
+    y = _moded_conv2d(xh, w, bias, stride[0], 0, padding[1], dilation[0],
+                      h * sp.size)
+    if y is not None:
+        return y
     fused = bias if bias is None or bias.dtype == x.dtype else None
     y = F.conv2d(xh, w, fused, stride, (0, padding[1]), dilation)
     return y if fused is bias else _with_bias(y, bias)
 
 
 def _slab_conv_transpose2d(x, w, bias, stride, padding, sp):
-    """ConvTranspose2d of a slab: the padded slab's whole output, cut to
-    the stride * h rows this slab's inputs own."""
+    """ConvTranspose2d of a slab: the halo'd slab's output (at the layer's
+    own padding, under the conv modes as in one process), cut to the
+    stride * h rows this slab's inputs own."""
     k, s, p = w.shape[2], stride[0], padding[0]
     if k - 2 * p != s:
         raise NotImplementedError(
@@ -316,10 +380,12 @@ def _slab_conv_transpose2d(x, w, bias, stride, padding, sp):
             f"{s} times its rows; spatial partitioning runs k - 2p == s")
     above, below = (k - 1 - p) // s, (p - 1 + s) // s
     xh = halo_exchange(x, sp.group, sp.index, sp.size, above, below)
-    fused = bias if bias is None or bias.dtype == x.dtype else None
-    y = F.conv_transpose2d(xh, w, fused, stride, (0, padding[1]))
-    y = y.narrow(2, above * s + p, x.shape[2] * s)
-    return y if fused is bias else _with_bias(y, bias)
+    y = _moded_conv_transpose2d(xh, w, bias, s, p, x.shape[2] * sp.size)
+    if y is None:
+        fused = bias if bias is None or bias.dtype == x.dtype else None
+        y = F.conv_transpose2d(xh, w, fused, stride, padding)
+        y = y if fused is bias else _with_bias(y, bias)
+    return y.narrow(2, above * s, x.shape[2] * s)
 
 
 class Conv2d(nn.Conv2d):
@@ -328,25 +394,17 @@ class Conv2d(nn.Conv2d):
     it is nn.Conv2d unchanged."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        modes = current_modes()
         w = self.weight if x.dtype == self.weight.dtype \
             else self.weight.to(x.dtype)
         sp = current_spatial()
         if sp is not None:
-            check_spatial_modes(modes)
             return _slab_conv2d(x, w, self.bias, self.stride, self.padding,
                                 self.dilation, sp)
-        args = (self.stride[0], self.padding[0], self.dilation[0])
-        if modes.int8 and quant.eligible(w.shape[1], w.shape[0]):
-            return quant.conv2d_int8(x, w, self.bias, *args)
-        if modes.pack_small_cin:
-            y = _packed_small_cin(x, w, *args)
-            if y is not None:
-                return _with_bias(y, self.bias)
-        if modes.pack_out:
-            y = _packed_out_conv(x, w, *args)
-            if y is not None:
-                return _with_bias(y, self.bias)
+        p = self.padding[0]
+        y = _moded_conv2d(x, w, self.bias, self.stride[0], p, p,
+                          self.dilation[0], x.shape[2])
+        if y is not None:
+            return y
         if x.dtype == self.weight.dtype:
             return super().forward(x)
         return _with_bias(self._conv_forward(x, w, None), self.bias)
@@ -357,22 +415,16 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     dtype under the conv modes in force, as Conv2d does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        modes = current_modes()
         w = self.weight if x.dtype == self.weight.dtype \
             else self.weight.to(x.dtype)
         sp = current_spatial()
         if sp is not None:
-            check_spatial_modes(modes)
             return _slab_conv_transpose2d(x, w, self.bias, self.stride,
                                           self.padding, sp)
-        if modes.int8 and quant.eligible(w.shape[0], w.shape[1]):
-            return quant.conv_transpose2d_int8(x, w, self.bias,
-                                               self.stride[0],
-                                               self.padding[0])
-        if modes.pack_out:
-            y = _packed_out_deconv(x, w, self.stride[0], self.padding[0])
-            if y is not None:
-                return _with_bias(y, self.bias)
+        y = _moded_conv_transpose2d(x, w, self.bias, self.stride[0],
+                                    self.padding[0], x.shape[2])
+        if y is not None:
+            return y
         if x.dtype == self.weight.dtype:
             return super().forward(x)
         y = F.conv_transpose2d(x, w, None, self.stride, self.padding,
@@ -410,8 +462,7 @@ class BatchNorm(nn.BatchNorm2d):
         self.frozen = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        sp = current_spatial()
-        group = current_group() if sp is None else sp.norm_group
+        group = batch_group()
         if self.training and group is not None:
             return self._global_forward(x, group)
         mean, var = self.running_mean, self.running_var

@@ -6,9 +6,15 @@ The scheme is the JAX package's, number for number:
   * weights:     per output channel, symmetric; the scale is
                  max|w| / 127 + 1e-12 over the channel, from the weight in
                  the activation dtype (under bf16 the bf16-rounded weight)
-  * activations: per tensor, symmetric, with a scale from this call's
-                 input: max|x| / 127 + 1e-12, q = clip(round(x / scale),
-                 -127, 127), round half to even
+  * activations: per tensor, symmetric: max|x| / 127 + 1e-12 over the
+                 whole tensor that the JAX package's one-device program
+                 quantises there, q = clip(round(x / scale), -127, 127),
+                 round half to even.  Where a process holds part of that
+                 tensor (parallel/collectives.py::batch_group: its rows of
+                 the global batch under data parallelism, and its slab of
+                 their rows in a sharded region) the maximum is all-reduced
+                 over the ranks that hold the rest, so the scale does not
+                 depend on how the batch or the image is split
   * accumulate:  int32; then int32 -> f32, times (sx * sw), cast to the
                  activation dtype, and the bias added in that dtype
   * eligibility: convs with min(Cin, Cout) >= MIN_QUANT_CHANNELS only
@@ -28,15 +34,20 @@ Integer sums do not depend on their order, so `conv2d_int32` and
 `conv_transpose2d_int32` equal their plain versions (`..._reference`: an
 f64 convolution over the int8 values, exact since |sum| <= 127^2 * kh *
 kw * Cin << 2^53) bit for bit.  The plain versions serve tests and the
-card's checks; no entry point calls them.
+card's checks; no entry point calls them.  For the same reason a conv on
+a slab of rows (spatial partitioning: the halo'd slab, no H padding of
+its own, ops/convs.py) gives, with the same scale, the whole tensor's
+int32 sums of its rows bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import all_reduce_max, batch_group
 
 #: convs narrower than this on either side stay in the activation dtype
 MIN_QUANT_CHANNELS = 16
@@ -57,9 +68,14 @@ def _scale(amax: torch.Tensor) -> torch.Tensor:
 def quantize_activation(x: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor symmetric int8: (q, scale) with x ~= q * scale; scale is
-    a 0-dim f32 tensor."""
+    a 0-dim f32 tensor, from the maximum over every rank of batch_group()
+    (one all-reduce of one f32; a local maximum in one process)."""
     xf = x.to(torch.float32)
-    scale = _scale(xf.abs().amax())
+    amax = xf.abs().amax()
+    group = batch_group()
+    if group is not None:
+        amax = all_reduce_max(amax, group)
+    scale = _scale(amax)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -84,14 +100,24 @@ def _round_up(n, m: int):
     return (n + m - 1) // m * m
 
 
+Padding = Union[int, Tuple[int, int]]
+
+
+def _pads(padding: Padding) -> Tuple[int, int]:
+    """(ph, pw) of an int or an (H, W) pair, as F.conv2d reads them."""
+    return (padding, padding) if isinstance(padding, int) else padding
+
+
 def conv2d_int32(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
-                 padding: int = 0, dilation: int = 1) -> torch.Tensor:
+                 padding: Padding = 0, dilation: int = 1) -> torch.Tensor:
     """The int32 sums of an int8 conv: xq [B, Cin, H, W], wq [Cout, Cin,
     kh, kw] (int8) -> [B, Cout, Ho, Wo] int32 (a view in NHWC memory
-    order)."""
+    order).  `padding` is one int for both axes or (ph, pw): a slab of
+    rows takes (0, p), its halo being its H padding."""
     b, cin = xq.shape[:2]
     cout, _, kh, kw = wq.shape
-    xp = F.pad(xq, (padding, padding, padding, padding))
+    ph, pw = _pads(padding)
+    xp = F.pad(xq, (pw, pw, ph, ph))
     span_h, span_w = dilation * (kh - 1) + 1, dilation * (kw - 1) + 1
     win = xp.unfold(2, span_h, stride).unfold(3, span_w, stride)
     win = win[..., ::dilation, ::dilation]        # [B, Cin, Ho, Wo, kh, kw]
@@ -111,7 +137,7 @@ def conv2d_int32(xq: torch.Tensor, wq: torch.Tensor, stride: int = 1,
 
 
 def conv2d_int32_reference(xq: torch.Tensor, wq: torch.Tensor,
-                           stride: int = 1, padding: int = 0,
+                           stride: int = 1, padding: Padding = 0,
                            dilation: int = 1) -> torch.Tensor:
     """The plain version of conv2d_int32: an f64 convolution over the int8
     values, exact, rounded back to int32."""
@@ -154,7 +180,7 @@ def _dequantize(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
 
 def conv2d_int8(x: torch.Tensor, weight: torch.Tensor,
                 bias: Optional[torch.Tensor], stride: int = 1,
-                padding: int = 0, dilation: int = 1) -> torch.Tensor:
+                padding: Padding = 0, dilation: int = 1) -> torch.Tensor:
     """Conv2d on the int8 path, in x's dtype: x [B, Cin, H, W], weight
     [Cout, Cin, kh, kw] already in x's dtype."""
     xq, sx = quantize_activation(x)

@@ -192,6 +192,26 @@ def all_reduce_sum(x: torch.Tensor, group: dist.ProcessGroup
     return _AllReduceSum.apply(x, group)
 
 
+def all_reduce_max(x: torch.Tensor, group: dist.ProcessGroup
+                   ) -> torch.Tensor:
+    """The elementwise maximum of `x` over the group's ranks, on every
+    rank (a new tensor; no autograd: int8's activation scale, inference
+    only).  Gloo runs MAX on CUDA tensors as NCCL does."""
+    y = x.detach().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
+
+
+def batch_group() -> Optional[dist.ProcessGroup]:
+    """The ranks over which this region's activations are split: in a
+    sharded region every rank of the grid (rows and slabs), elsewhere the
+    data group in force (None: one process, or a replicated region of a
+    grid with one data group).  A reduction over a whole activation, as
+    the JAX package's one-device program takes it, reduces over these."""
+    sp = current_spatial()
+    return current_group() if sp is None else sp.norm_group
+
+
 # ---- spatial partitioning: the rows of an image split over ranks ----------
 #
 # Under spatial partitioning (parallel/spatial.py) rank s of an sp group of

@@ -171,10 +171,15 @@ def test_load_and_export_refusals(weights, artifact, tmp_path):
     out, _ = artifact
     with pytest.raises(FileNotFoundError, match="no serving artifact"):
         EM.load_serving(str(tmp_path / "nothing"), "cpu")
+    # attention_impl='torch' (or 'lax') exports: its graph calls the plain
+    # scan's op in place of the kernel's
     for impl in ("torch", "lax"):
-        with pytest.raises(ValueError, match="attention_impl='torch'"):
-            EM.export_serving(tcfg.replace(attention_impl=impl), models,
-                              str(tmp_path / impl), device="cpu")
+        EM.export_serving(tcfg.replace(attention_impl=impl), models,
+                          str(tmp_path / impl), device="cpu")
+        ops = EM.graph_ops(EM.load_serving(str(tmp_path / impl),
+                                           "cpu").exported["symbolic"])
+        assert f"{EM.PLAIN_SCAN_OP}.default" in ops
+        assert f"{EM.SCAN_OP}.default" not in ops
     # an artifact serves on the device type it was exported on only
     moved = str(tmp_path / "moved")
     shutil.copytree(out, moved)

@@ -157,11 +157,19 @@ def test_dropout_rows_are_the_one_process_draw(parts, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_refusals_name_their_cause(parts, world):
-    """A slab too small for its halo, a stride-2 conv on an odd slab, and
-    the conv modes that do not run on slabs are refused, by name."""
-    for res in parts[1][world][1]:
+    """A slab too small for its halo and a stride-2 conv on an odd slab are
+    refused, by name; the conv modes run on slabs: an int8 conv gives the
+    whole tensor's rows bit for bit, a packed one within 1e-6."""
+    ranks = parts[1][world][1]
+    for res in ranks:
         got = res["refusals"]
         assert "cannot lend a halo of 3 row(s) above" in got["halo"]
         assert "k4 s2 p1 d1 conv cannot run on a slab of 3 rows" in got["odd"]
-        assert got["int8"].startswith("NotImplementedError: quant='int8'")
-        assert "pack_small_cin and pack_out" in got["pack"]
+    for name, (modes, layer, x) in W.modes_convs().items():
+        with torch.no_grad(), convs.use_modes(modes):
+            want = layer(x)
+        got = torch.cat([r[name] for r in ranks], 2)
+        if name == "int8":
+            assert torch.equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, **TOL)

@@ -251,7 +251,8 @@ def sp_parts(rank, world, tmp):
     gather and the slice, InstanceNorm and a train-mode BatchNorm, each
     forward and backward of sum(y * w); a checkpointed conv whose backward
     (and so the recompute) runs in another thread; the dropout's keep
-    mask; and the refusals.  Writes what each gave."""
+    mask; the refusals; and a conv under int8 and one under the pack
+    modes (modes_convs).  Writes what each gave."""
     import threading
 
     from deepinpainting_torch.models.remat import checkpoint_level
@@ -311,25 +312,38 @@ def sp_parts(rank, world, tmp):
                                                  sp.group, rank, world, 3,
                                                  2)),
                 ("odd", lambda: inputs["layers"]["conv_k4s2p1"][0](
-                    mine(inputs["x"])[:, :, :3])),
-                ("int8", lambda: _under_modes(convs.ConvModes(int8=True),
-                                              inputs)),
-                ("pack", lambda: _under_modes(convs.ConvModes(
-                    pack_small_cin=True, pack_out=True), inputs))):
+                    mine(inputs["x"])[:, :, :3]))):
             try:
                 call()
                 refusals[name] = None
             except (ValueError, NotImplementedError) as e:
                 refusals[name] = f"{type(e).__name__}: {e}"
         out["refusals"] = refusals
+        for name, (modes, layer, x) in modes_convs().items():
+            with torch.no_grad(), convs.use_modes(modes):
+                out[name] = layer(mine(x))
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
 
 
-def _under_modes(modes, inputs):
+def modes_convs():
+    """{mode: (ConvModes, conv, input)}: a k3 s1 p1 conv that int8 takes
+    (Cin and Cout 16) and a k4 s2 p1 conv that pack_small_cin rewrites by
+    space-to-depth (Cin 4), each with an input [2, C, 16, 10], from seed
+    3."""
     from deepinpainting_torch.ops import convs
-    layer, x, _ = inputs["layers"]["conv_k3s1p1"]
-    with convs.use_modes(modes):
-        return layer(x[:, :, :4])
+    g = torch.Generator().manual_seed(3)
+    out = {}
+    for name, modes, layer in (
+            ("int8", convs.ConvModes(int8=True),
+             convs.Conv2d(16, 16, 3, 1, 1)),
+            ("pack", convs.ConvModes(pack_small_cin=True, pack_out=True),
+             convs.Conv2d(4, 3, 4, 2, 1))):
+        with torch.no_grad():
+            for p in layer.parameters():
+                p.copy_(0.5 * torch.randn(p.shape, generator=g))
+        out[name] = (modes, layer, torch.randn(2, layer.in_channels, 16, 10,
+                                               generator=g))
+    return out
 
 
 def sp_infer(rank, world, tmp, cfgs):
@@ -401,3 +415,166 @@ def sp_session(rank, world, tmp, cfg):
         sess.follow()
     torch.save({"answers": answers, "calls": sess.calls,
                 "grid": sess.grid[:4]}, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+# ---- int8 across ranks (tests/test_torch_dp_int8.py, _sp_knobs.py) --------
+
+def _models(cfg, sds):
+    """The port's G, P and VGG of `cfg` (CPU, eval) holding `sds`."""
+    from deepinpainting_torch.engine import inpaint as TI
+    models = TI.build_models(cfg)
+    for net, sd in zip(models, sds):
+        net.load_state_dict(sd)
+    return TI.Models(*(net.eval() for net in models))
+
+
+def dp_int8(rank, world, tmp, cfg, dirs):
+    """int8 under data parallelism: evaluate() over the images of `dirs`,
+    the data-parallel eval step on this rank's rows of each batch of
+    `tmp`/inputs.pt, and all_reduce_max of a rank's own tensor.  Writes
+    the per-image metrics, fake_B of the rank's rows and the maximum."""
+    from deepinpainting_torch.data import SelfRefDataset
+    from deepinpainting_torch.engine.evaluator import evaluate
+    from deepinpainting_torch.parallel import collectives, mesh
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    models = _models(cfg, inputs["models"])
+    group = mesh.default_group()
+    res = evaluate(cfg, models, SelfRefDataset(dirs["val"], dirs["mask"],
+                                               cfg.fine_size),
+                   device="cpu", verbose=False, return_per_image=True)
+    step = mesh.make_dp_eval_step(cfg, "cpu", group)
+    fake_B = [step(models, mesh.shard_batch(b, rank, world))["fake_B"]
+              for b in inputs["batches"]]
+    mine = inputs["max_in"][rank]
+    got = collectives.all_reduce_max(mine, group)
+    torch.save({"evaluate": res, "fake_B": fake_B, "max": got,
+                "max_in_after": mine},
+               os.path.join(tmp, f"rank{rank}.pt"))
+
+
+REWRITES = ("_conv2d_space_to_depth", "_conv2d_tap_stack", "_conv2d_hpack2",
+            "_deconv_dpack4")
+
+
+def count_rewrites():
+    """Count each pack rewrite's calls in this process (the routing looks
+    them up by name): the live {name: calls} dict."""
+    from deepinpainting_torch.ops import convs
+    calls = {n: 0 for n in REWRITES}
+    for n in REWRITES:
+        def wrapped(*a, _n=n, _f=getattr(convs, n)):
+            calls[_n] += 1
+            return _f(*a)
+        setattr(convs, n, wrapped)
+    return calls
+
+
+def record_int32():
+    """Record every int8 conv's int32 sums and activation scale in this
+    process (ops/quant.py dequantizes each conv's sums once): the live
+    list of (sums, scale)."""
+    from deepinpainting_torch.ops import quant
+    seen = []
+    dequantize = quant._dequantize
+
+    def recorded(acc, sx, *a):
+        seen.append((acc.clone(), sx.clone()))
+        return dequantize(acc, sx, *a)
+    quant._dequantize = recorded
+    return seen
+
+
+class lowered:
+    """Set the pack gates' module constants of ops/convs.py for the block
+    (the thresholds tests lower so that a 64 px image packs)."""
+
+    def __init__(self, values):
+        from deepinpainting_torch.ops import convs
+        self.convs, self.values = convs, values
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.convs, k) for k in self.values}
+        for k, v in self.values.items():
+            setattr(self.convs, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.convs, k, v)
+
+
+def sp_knobs(rank, world, tmp):
+    """The conv modes on this rank's slab (tests/test_torch_sp_knobs.py):
+    each int8 geometry's output and int32 sums; each pack case's forward
+    and backward of sum(y * w) and the rewrites it called; then
+    make_sp_inference_fn of the packed config (its gates lowered) and of
+    the int8 one on each request, with the rewrites the packed forward
+    called and the int8 convs' scales.  Writes what each gave."""
+    from deepinpainting_torch.ops import convs
+    from deepinpainting_torch.parallel import collectives as C
+    from deepinpainting_torch.parallel import spatial
+    inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    sp = _sp_context(rank, world)
+    mine = lambda t: C.slice_rows(t, rank, world).clone()
+    calls = count_rewrites()
+    sums = record_int32()
+    out = {"int8": {}, "pack": {}}
+    with C.use_spatial(sp):
+        for name, (layer, x) in inputs["int8"].items():
+            sums.clear()
+            with torch.no_grad(), convs.use_modes(convs.ConvModes(int8=True)):
+                y = layer(mine(x))
+            out["int8"][name] = (y, *sums[0])
+        for name, (layer, x, w) in inputs["pack"].items():
+            for k in calls:
+                calls[k] = 0
+            xs = mine(x).requires_grad_(True)
+            with convs.use_modes(convs.ConvModes(pack_small_cin=True,
+                                                 pack_out=True)):
+                y = layer(xs)
+            (y * mine(w)).sum().backward()
+            out["pack"][name] = (y.detach(), xs.grad,
+                                 {k: p.grad for k, p in
+                                  layer.named_parameters()}, dict(calls))
+    models = _models(inputs["cfgs"]["int8"], inputs["models"])
+    grid = spatial.make_sp_group()
+    out["infer"] = {}
+    for name, cfg in inputs["cfgs"].items():
+        for k in calls:
+            calls[k] = 0
+        sums.clear()
+        infer = spatial.make_sp_inference_fn(cfg, "cpu", grid)
+        with lowered(inputs["lowered"] if name == "pack" else {}):
+            outs = [infer(*models, *(spatial.slab(req, grid)[k] for k in
+                                     ("image", "mask", "ref")))
+                    for req in inputs["requests"]]
+        out["infer"][name] = (outs, dict(calls), [s for _, s in sums])
+    out["int8_variants"] = _int8_variants(inputs, models, grid)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def _int8_variants(inputs, models, grid):
+    """make_sp_inference_fn of the int8 config on each request list of
+    inputs["int8_variants"] (the requests, their images an ulp away), with
+    the scales all-reduced ("global") and, as a control, each slab's own
+    maximum as its scale ("slab"): {mode: [[(fake_B, fake_P)] a list]}."""
+    from deepinpainting_torch.ops import quant
+    from deepinpainting_torch.parallel import spatial
+    infer = spatial.make_sp_inference_fn(inputs["cfgs"]["int8"], "cpu", grid)
+    real, out = quant.all_reduce_max, {}
+    try:
+        for mode in ("global", "slab"):
+            quant.all_reduce_max = (real if mode == "global" else
+                                    lambda x, group: x.detach().clone())
+            out[mode] = [[infer(*models, *(spatial.slab(req, grid)[k]
+                                           for k in ("image", "mask", "ref")))
+                          for req in reqs]
+                         for reqs in inputs["int8_variants"]]
+    finally:
+        quant.all_reduce_max = real
+    return out
+
+
+def sp_step_lowered(rank, world, tmp, cfg, n_data, values):
+    """sp_step with the pack gates lowered (`lowered`)."""
+    with lowered(values):
+        sp_step(rank, world, tmp, cfg, n_data)
