@@ -127,7 +127,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      recomputation; (b) fake_B kernel vs plain at phase 4's small hole,
      b1 requests and their launches, one train step at B=8 kernels vs
      plain (losses), launches 1 / 1; conversion, import, restore and b1
-     times.
+     times;
+ 14. the quality protocols' runner (deepinpainting_torch/demo.py) at a cut
+     depth, full width: make_synth_data.py's 24 training and 8 held-out
+     images, one epoch of 3 steps at 128 px for each 128 px protocol's
+     overrides (f32, bf16, bn, trunc, cosis, corrected, kr) through
+     demo.run_protocol and `_cli train`, then the f32 run's three
+     evaluations (f32, known replacement off, int8), its int8 fake_B gap
+     and one POST; every loss finite, 8 finite per-image PSNR and SSIM an
+     evaluation, each run's launches; the band check on fabricated
+     figures (a miss on both seeds exits 1 naming it).  The real figures
+     are not judged at this depth.
+     `python3 chip_smoke.py --phase 14` runs the build and this phase
+     alone, with no result line.
 Three lines end the output, each on its own: a JSON object with a `kernels`
 list, the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -148,6 +160,7 @@ import sys
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -2033,7 +2046,9 @@ def dp_int8_eval(dev, card: str, root: str, dirs: dict, p9_cfg,
     bit, or, where cuDNN sums a 4-row batch in another order than an
     8-row one, within ENVELOPE_K x that order's own effect: the f32
     evaluation of the same rows as two 4-row halves against the 8-row
-    batch.  Beside it, what a rank computed
+    batch, in max and in mean |d| (the control below is held to the mean,
+    which one flipped attention patch cannot blow up).  Beside it, what a
+    rank computed
     before the scale was global: each rank's rows evaluated alone.
     Returns the ranks' launches."""
     import torch
@@ -2078,6 +2093,10 @@ def dp_int8_eval(dev, card: str, root: str, dirs: dict, p9_cfg,
                       for r in range(P11_WORLD)]
     env = {k: float((torch.cat([h[k] for h in f32_halves]) - f32_whole[k])
                     .abs().max()) for k in ("fake_B", "psnr", "ssim")}
+    # the mean as well: one attention patch that flips between the two
+    # orders moves the max by O(1) (1.32 once), not the mean
+    env["fake_B_mean"] = float((torch.cat([h["fake_B"] for h in f32_halves])
+                                - f32_whole["fake_B"]).abs().mean())
     del models, step, want, f32_step, f32_whole, f32_halves
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2114,14 +2133,16 @@ def dp_int8_eval(dev, card: str, root: str, dirs: dict, p9_cfg,
         f"{[x['launches'] for x in ranks]}; {d_s:.1f} s of ranks, the part "
         f"{time.perf_counter() - t_part:.1f} s  [{card}]")
     check(bit or (d_B.max() <= ENVELOPE_K * max(env["fake_B"], 1e-6)
+                  and d_B.mean() <= ENVELOPE_K * max(env["fake_B_mean"],
+                                                     1e-6)
                   and all(d_m[k] <= ENVELOPE_K * max(env[k], 1e-6)
                           for k in d_m)),
           "(d) two-rank int8 evaluation vs one process")
     check(ranks[0]["psnr_per_image"] == ranks[1]["psnr_per_image"]
           and ranks[0]["images"] == TRAIN_BATCH,
           "(d) the ranks' per-image metrics are the same")
-    check(d_parent.max() > (0.0 if bit else
-                            ENVELOPE_K * max(env["fake_B"], 1e-6)),
+    check(d_parent.max() > 0.0 if bit else
+          d_parent.mean() > ENVELOPE_K * max(env["fake_B_mean"], 1e-6),
           "(d) the halves' own scales must move fake_B (the check bites)")
     check(all(x["launches"] == {"scan_stream": 2, "kbar_build": 0}
               for x in ranks),
@@ -3814,6 +3835,259 @@ def reference_checkpoints(dev, card: str, base, small, small_batch,
     return paths
 
 
+# ---- phase 14: the quality protocols' runner (demo.py) at a cut depth -------
+
+# make_synth_data.py's arguments at the cut depth: 24 training images (3
+# steps of 8), 8 held-out, 256 px images trained at 128 px as the
+# protocols are
+P14_DATA = ("--n", "24", "--n_valid", "8", "--n_masks", "8", "--size", "256")
+P14_TRAIN = ("--niter", "1", "--niter_decay", "0", "--data_workers", "2")
+
+
+def protocol_runner(device: str, card: str) -> dict:
+    """Phase 14: demo.py's own protocol code (run_protocol, judge,
+    report) at a cut depth: every 128 px protocol's overrides for one
+    epoch of 3 steps at full width, then f32's evaluations at epoch 1
+    (f32, --faithful_known_replacement false, --quant int8), its int8
+    fake_B gap and its POST.  Checks every loss finite, every evaluation's
+    8 finite per-image PSNR and SSIM, each protocol's launches against
+    what its steps, validation and evaluations make, and that the band
+    check flags a fabricated miss: a figure out of band on seed 0 asks
+    for seed 1, and on both makes report() return 1 naming it.  The real
+    figures at this depth are not judged.  Returns the path's launches."""
+    import math
+
+    from deepinpainting_torch import demo
+    from deepinpainting_torch.ops import attention_cuda as TAC
+
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_phase14_", dir=BUILD))
+    atexit.register(shutil.rmtree, str(root), True)
+    names = [n for n, p in demo.PROTOCOLS.items()
+             if demo.DATA[p.data] == demo.DATA["synth"]]
+    check(len(names) == 7, f"the 128 px protocols: {names}")
+    TAC.launches = TAC.kbar_launches = 0    # counts: this path only
+    runs, expected = {}, {"scan_stream": 0, "kbar_build": 0}
+    for name in names:
+        proto = demo.PROTOCOLS[name]
+        evaluated = proto.serve       # f32: its three evaluations
+        # a protocol that is not evaluated saves no checkpoint
+        cut = demo.Cut(P14_DATA, P14_TRAIN + (
+            "--save_epoch_freq", "1" if evaluated else "2"),
+            evaluate=evaluated)
+        t0 = time.perf_counter()
+        before = (TAC.launches, TAC.kbar_launches)
+        runs[name] = fig = demo.run_protocol(proto, root, 0, device, cut)
+        got = {"scan_stream": TAC.launches - before[0],
+               "kbar_build": TAC.kbar_launches - before[1]}
+        cfg = demo.train_config(demo.COMMON + proto.overrides + cut.train)
+        per_step = step_launches(cfg)
+        steps = 24 // cfg.batch_size
+        want = {"scan_stream": steps * per_step["scan_stream"]
+                + -(-8 // cfg.batch_size)             # validation
+                + steps * cfg.batch_size // cfg.display_freq,
+                "kbar_build": steps * per_step["kbar_build"]}
+        evals = [ev for ev in proto.evaluations if ev.epoch == 20] \
+            if evaluated else []
+        # each evaluation: one eval batch; f32's fake_B gap: two more;
+        # its POST: the session's warm-up and the request
+        want["scan_stream"] += len(evals) + (4 if evaluated else 0)
+        check(got == want, f"phase 14 {name}: launches {got}, want {want}")
+        for k in want:
+            expected[k] += want[k]
+        run_dir = root / "checkpoints" / f"{name}_seed0"
+        with open(run_dir / "metrics.csv") as f:
+            rows = list(csv.DictReader(f))
+        losses = [float(v) for row in rows for k, v in row.items()
+                  if k not in ("step", "time")]
+        check(len(rows) == steps and all(map(math.isfinite, losses)),
+              f"phase 14 {name}: {len(rows)} step rows, every loss finite")
+        for ev in evals:
+            text = (root / "logs" / f"{name}_seed0.eval_{ev.name}.log"
+                    ).read_text()
+            psnr, ssim = demo.per_image(text)
+            check(len(psnr) == len(ssim) == 8
+                  and all(map(math.isfinite, psnr + ssim)),
+                  f"phase 14 {name} {ev.name}: 8 finite per-image PSNR "
+                  f"and SSIM")
+        last = ", ".join(f"{k} {float(v):.4f}" for k, v in rows[-1].items()
+                         if k not in ("step", "time"))
+        log(f"phase 14 {name} ({' '.join(proto.overrides) or 'f32'}): "
+            f"{steps} steps, last losses {last}, launches {got}, "
+            f"{time.perf_counter() - t0:.1f} s"
+            + "".join(f"; {ev.name} PSNR {fig[f'psnr_{ev.name}']:.3f} SSIM "
+                      f"{fig[f'ssim_{ev.name}']:.4f}" for ev in evals))
+    f32 = runs["f32"]
+    check(f32["served_ok"] and f32["fake_B_int8_gap"]["images"] == 8
+          and f32["fake_B_int8_gap"]["finite"],
+          "phase 14 f32: the POST and int8's fake_B gap")
+    log(f"phase 14 f32: kr off dPSNR {f32['d_psnr_e20_kr']:.4f}, int8 "
+        f"dPSNR {f32['d_psnr_e20_int8']:.4f} dSSIM "
+        f"{f32['d_ssim_e20_int8']:.4f}, int8 fake_B gap "
+        f"{f32['fake_B_int8_gap']['mean_d']:.5f} (not judged at this depth)")
+
+    # the band check, on fabricated figures: each at its band's low end,
+    # then one of them below it
+    proto = demo.PROTOCOLS["f32"]
+    inside = {k: lo for k, (lo, _) in demo.bands(proto).items()}
+    outside = dict(inside, psnr_e20=inside["psnr_e20"] - 0.5)
+    check(demo.judge(proto, inside) == [], "in-band figures pass")
+    check(demo.judge(proto, outside) == ["psnr_e20"],
+          "a figure below its band asks for the next seed")
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        code_both = demo.report({"f32": [dict(outside, seed=0),
+                                         dict(outside, seed=1)]})
+        code_one = demo.report({"f32": [dict(outside, seed=0),
+                                        dict(inside, seed=1)]})
+    check(code_both == 1 and "MISS f32 psnr_e20" in err.getvalue()
+          and code_one == 0,
+          f"report(): a miss on both seeds exits 1 naming it ({code_both}, "
+          f"{err.getvalue().strip()!r}), a miss on one seed 0 ({code_one})")
+    launches = {"scan_stream": TAC.launches, "kbar_build": TAC.kbar_launches}
+    check(launches == expected, f"phase 14 launches {launches}")
+    log(f"phase 14 band check: a fabricated miss exits {code_both} "
+        f"({err.getvalue().strip().splitlines()[0]}); launches {launches}")
+    errs = protocol_kernels_vs_plain(device, card, root)
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return {"paths": {"protocols": launches}, **errs}
+
+
+def protocol_kernels_vs_plain(device: str, card: str, root: Path) -> dict:
+    """Phase 14 (b), outside the counts: the kernels against their plain
+    versions at the protocols' shape (128 px, B=8: N=256, C=512), on a
+    batch the port's dataset makes from phase 14's images and masks.
+    One f32 protocol train step from fresh weights with the kernels and
+    again with the plain versions (losses within STEP_TOL), one evaluation
+    batch of the same weights both ways (fake_B within E2E_TOL), and the
+    scan and kbar kernels on the attention inputs of the kernels' step
+    against their plain versions (the scan by phase 2's rule: DIRECT_TOL,
+    or within ENVELOPE_K of the plain scan's own change under a PERTURB
+    nudge of the features; kbar bit for bit).  Returns the kernels' max
+    |d| from their plain versions."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepinpainting_torch import demo
+    from deepinpainting_torch.data.dataset import InpaintDataset
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.ops import attention as TA
+    from deepinpainting_torch.ops import attention_cuda as TAC
+
+    data, _ = demo.make_data(root, P14_DATA)
+    cfg = demo.train_config(list(demo.COMMON))
+    ds = InpaintDataset(str(data / "img"), str(data / "mask"),
+                        str(data / "img"), cfg.fine_size, seed=0)
+    rng = np.random.default_rng(14)
+    items = [ds.fetch(i, rng) for i in range(cfg.batch_size)]
+    ds.close()
+    batch = {k: np.stack([it[k] for it in items]) for k in items[0]}
+    seen, core = [], TA.attention_core_batched
+
+    def spy(feat, ref, flag, **kw):
+        seen.append((feat.detach().clone(), ref.detach().clone(),
+                     flag.detach().clone(), kw))
+        return core(feat, ref, flag, **kw)
+
+    losses, fake_B = {}, {}
+    for impl in ("cuda", "torch"):
+        icfg = cfg.replace(attention_impl=impl)
+        state = TI.create_state(
+            icfg, torch.Generator().manual_seed(cfg.seed), device)
+        nets = (state.G, state.P)
+        for net in nets:
+            net.eval()
+        fake_B[impl] = TI.make_inference_fn(icfg, device)(
+            state.G, state.P, state.vgg, batch["image"], batch["mask"],
+            batch["ref"])[0]
+        for net in nets:
+            net.train()
+        if impl == "cuda":
+            TA.attention_core_batched = spy
+        try:
+            _, m = TI.make_train_step(icfg, device)(state, batch)
+        finally:
+            TA.attention_core_batched = core
+        losses[impl] = {k: v.item() for k, v in m.items()}
+        del state, nets
+    torch.cuda.empty_cache()
+    d_step = max(abs(losses["cuda"][k] - losses["torch"][k])
+                 / max(abs(losses["torch"][k]), 1e-12) for k in losses["cuda"])
+    d_fake = (fake_B["cuda"] - fake_B["torch"]).abs().max().item()
+
+    check(len(seen) == 1, f"one kbar build in the step, saw {len(seen)}")
+    feat, ref, flag, kw = seen[0]
+    rows = lambda t: t.flatten(2).transpose(1, 2).contiguous()
+    flag = flag.to(torch.float32).contiguous()
+
+    def scan_args(f):
+        _, pn, ind, vmax, known = TA.prep(rows(f), rows(ref), flag,
+                                          kw["known_replacement"])
+        return ind.contiguous(), (flag, vmax.contiguous(), pn.contiguous(),
+                                  known.contiguous())
+
+    ind, args = scan_args(feat)
+    k_out, k_a, k_b = TAC.scan_stream_cuda(*args)
+    p_out, p_a, p_b = TA.scan_stream_reference(*args)
+    nudged, _, _ = TA.scan_stream_reference(
+        *scan_args(feat * (1.0 + PERTURB))[1])
+    k_kbar = TAC.kbar_build_cuda(flag, ind, k_a, k_b)
+    p_kbar = TA.kbar_build_reference(flag, ind, k_a, k_b)
+    torch.cuda.synchronize()
+    um = flag == 0
+    onehot = F.one_hot(ind[um], flag.shape[1]).to(torch.float32)
+    d_out = (k_out - p_out).abs().max().item()
+    d_mean = (k_out - p_out).abs().mean().item()
+    d_ab = max((k_a - p_a).abs().max().item(),
+               (k_b - p_b).abs().max().item())
+    chaos = (nudged - p_out).abs().max().item()
+    chaos_mean = (nudged - p_out).abs().mean().item()
+    d_kbar = (k_kbar - p_kbar).abs().max().item()
+    log(f"phase 14 (b) kernels vs plain at the protocols' shape "
+        f"(B={flag.shape[0]}, N={flag.shape[1]}, C={feat.shape[1]}, masked "
+        f"{flag.mean().item():.2%}, the kernels' step's attention inputs): "
+        f"scan d_out={d_out:.3e} d_out_mean={d_mean:.3e} d_ab={d_ab:.3e} "
+        f"(limit {DIRECT_TOL}, or {ENVELOPE_K}x the plain scan's change "
+        f"under a {PERTURB} nudge: max {chaos:.3e} mean {chaos_mean:.3e}); "
+        f"kbar max|d| {d_kbar:.3e}, bit for bit "
+        f"{torch.equal(k_kbar, p_kbar)}; the f32 step's losses max relative "
+        f"difference {d_step:.3e} (limit {STEP_TOL}); an evaluation batch's "
+        f"fake_B max|d| {d_fake:.3e} (limit {E2E_TOL}); kernels "
+        f"{losses['cuda']}  [{card}]")
+    check(bool(torch.equal(k_out[um], args[3][um])
+               and (k_a[um] == 1).all() and (k_b[um] == 0).all()),
+          "phase 14 (b): unmasked rows must be known and (1, 0)")
+    check((d_out <= DIRECT_TOL and d_ab <= DIRECT_TOL)
+          or (d_out <= ENVELOPE_K * max(chaos, 1e-6)
+              and d_mean <= ENVELOPE_K * max(chaos_mean, 1e-2)),
+          "phase 14 (b): scan kernel vs plain at the protocols' shape")
+    check(torch.equal(k_kbar, p_kbar) and torch.equal(k_kbar[um], onehot),
+          "phase 14 (b): kbar kernel must equal its plain version bit for "
+          "bit")
+    check(all(np.isfinite(v) for v in losses["cuda"].values())
+          and bool(torch.isfinite(fake_B["cuda"]).all()),
+          "phase 14 (b): finite losses and fake_B")
+    check(d_step <= STEP_TOL, "phase 14 (b): the protocol step's losses, "
+          "kernels vs plain versions")
+    check(d_fake <= E2E_TOL, "phase 14 (b): fake_B, kernels vs plain")
+    return {"max_abs_err": max(d_out, d_ab), "kbar_max_abs_err": d_kbar}
+
+
+def phase14_only() -> int:
+    """`python3 chip_smoke.py --phase 14`: the build and phase 14 alone,
+    for working on the runner; prints no result line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("[chip_smoke] FAIL: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepinpainting_torch import _build
+    _build.build(_build.KERNELS)
+    protocol_runner("cuda", card_line())
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3905,6 +4179,8 @@ def main() -> int:
         ("25% hole, N=1024", 2, 8, 32, 32, [(6, 8, 16, 16)], True,
          "envelope"),
         ("3.7% hole, N=4096", 3, 8, 64, 64, [(20, 24, 13, 12)], True,
+         "envelope"),
+        ("25% hole, N=256 (128 px)", 4, 8, 16, 16, [(4, 4, 8, 8)], True,
          "envelope"),
     ]
     def compare_kbar(feat, ref, flag, kr):
@@ -4414,12 +4690,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     p13 = reference_checkpoints(dev, card, tcfg, small, small_batch)
 
+    # ---- phase 14: the quality protocols' runner at a cut depth -----------
+    torch.cuda.empty_cache()
+    p14 = protocol_runner("cuda", card)
+    max_abs_err = max(max_abs_err, p14["max_abs_err"])
+    kbar_max_abs_err = max(kbar_max_abs_err, p14["kbar_max_abs_err"])
+
     # `launches` sums the main paths (serving, the train step, the trainer,
     # evaluate, phase 8's bf16 / remat / grad_accum paths, phase 9's
     # serving program, phase 10's int8 and packed paths, phase 11's
     # data-parallel paths, phase 12's spatially partitioned ones, each
-    # rank's launches counted, and phase 13's paths from the imported
-    # reference checkpoints); the
+    # rank's launches counted, phase 13's paths from the imported
+    # reference checkpoints, and phase 14's protocol runs); the
     # times are those at B=8, N=1024, the shapes a 256 px train step gives
     # both: `ms` a launch of 20 back to back, `single_launch_ms` the median
     # of single launches, each between its own pair of events.  `n4096`
@@ -4432,7 +4714,8 @@ def main() -> int:
                             **{path: n[name]
                                for paths in (p8["paths"], p9,
                                              p10["paths"], p11["paths"],
-                                             p12["paths"], p13)
+                                             p12["paths"], p13,
+                                             p14["paths"])
                                for path, n in paths.items()}}
     n4096 = lambda name: {
         f"B{b}": {k: t[name][k] for k in ("ms", "single_ms", "plain_ms",
@@ -4472,4 +4755,6 @@ if __name__ == "__main__":
         sys.exit(dp_cli_child(sys.argv[2], sys.argv[4:]))
     if sys.argv[1:2] == ["--phase12c"]:     # phase 12 (c)'s ranks
         sys.exit(sp_cli_child(sys.argv[2], sys.argv[4:]))
+    if sys.argv[1:3] == ["--phase", "14"]:  # the build and phase 14 alone
+        sys.exit(phase14_only())
     sys.exit(main())

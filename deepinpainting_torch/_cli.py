@@ -2,7 +2,8 @@
 deepinpainting_tpu/_cli.py::train, evaluate):
 
     python -m deepinpainting_torch._cli train --dataroot D --maskroot M \
-        --refroot R [--validroot V] [--device cpu] [--<any Config field> V]
+        --refroot R [--validroot V] [--device cpu] [--stop_epoch N] \
+        [--<any Config field> V]
     python -m torch.distributed.run --standalone --nproc_per_node N \
         -m deepinpainting_torch._cli train --multihost [--sp_devices K] ...
     python -m deepinpainting_torch._cli evaluate --dataroot D --maskroot M \
@@ -51,6 +52,11 @@ def train(argv=None):
                     help="write a torch.profiler Chrome trace here")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--stop_epoch", type=int, default=0,
+                    help="stop after this epoch, on the schedule that "
+                         "--niter/--niter_decay set (resume later with "
+                         "--continue_train true --which_epoch N); 0: run "
+                         "to the last epoch")
     ap.add_argument("--multihost", action="store_true",
                     help="data-parallel training: run this command once a "
                          "rank (torch.distributed.run starts them and sets "
@@ -108,7 +114,8 @@ def train(argv=None):
           + (f", valid images: {len(valid_ds)}" if valid_ds else ""))
     trainer = Trainer(cfg, train_ds, valid_ds, device=device)
     try:
-        trainer.fit(profile_dir=args.profile_dir or None)
+        trainer.fit(profile_dir=args.profile_dir or None,
+                    stop_epoch=args.stop_epoch or None)
     finally:
         if args.multihost:
             dist.destroy_process_group()

@@ -212,18 +212,24 @@ class Trainer:
 
     # -- full run ------------------------------------------------------------
     def fit(self, state: Optional[TrainState] = None, *,
-            profile_dir: Optional[str] = None) -> TrainState:
-        """Train from `state` (else init_state()'s) to the last epoch.  In
-        a data-parallel run a given state must be the same on every rank
-        (parallel/mesh.py::replicate_state); rank 0 writes the trace."""
+            profile_dir: Optional[str] = None,
+            stop_epoch: Optional[int] = None) -> TrainState:
+        """Train from `state` (else init_state()'s) to the last epoch, or
+        to `stop_epoch` on the same schedule (a later run resumes from its
+        checkpoint).  In a data-parallel run a given state must be the
+        same on every rank (parallel/mesh.py::replicate_state); rank 0
+        writes the trace."""
         cfg = self.cfg
         resumed = self.resume_epoch()
         state = state if state is not None else self.init_state()
         total_steps = 0
         first_epoch = (resumed + 1 if resumed is not None
                        else cfg.epoch_count)
+        last_epoch = cfg.niter + cfg.niter_decay
+        if stop_epoch is not None:
+            last_epoch = min(last_epoch, stop_epoch)
         with trace(profile_dir if self.primary else None):
-            for epoch in range(first_epoch, cfg.niter + cfg.niter_decay + 1):
+            for epoch in range(first_epoch, last_epoch + 1):
                 state, train_loss, total_steps = self.train_epoch(
                     state, epoch, total_steps)
                 if epoch % cfg.save_epoch_freq == 0:
