@@ -129,7 +129,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      plain (losses), launches 1 / 1; conversion, import, restore and b1
      times;
  14. the quality protocols' runner (deepinpainting_torch/demo.py) at a cut
-     depth, full width: make_synth_data.py's 24 training and 8 held-out
+     depth, full width: data/synth.py's 24 training and 8 held-out
      images, one epoch of 3 steps at 128 px for each 128 px protocol's
      overrides (f32, bf16, bn, trunc, cosis, corrected, kr) through
      demo.run_protocol and `_cli train`, then the f32 run's three
@@ -137,7 +137,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      and one POST; every loss finite, 8 finite per-image PSNR and SSIM an
      evaluation, each run's launches; the band check on fabricated
      figures (a miss on both seeds exits 1 naming it).  The real figures
-     are not judged at this depth.
+     are not judged at this depth.  (b) the kernels against their plain
+     versions at the protocols' shape; (c) the f32 cut run twice under
+     cuDNN's defaults (the largest loss difference reported) and twice
+     under deterministic algorithms (bit for bit), the latter in a child
+     process with CUBLAS_WORKSPACE_CONFIG=:4096:8.
      `python3 chip_smoke.py --phase 14` runs the build and this phase
      alone, with no result line.
 Three lines end the output, each on its own: a JSON object with a `kernels`
@@ -150,6 +154,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import csv
+import dataclasses
 import io
 import json
 import os
@@ -3837,7 +3842,7 @@ def reference_checkpoints(dev, card: str, base, small, small_batch,
 
 # ---- phase 14: the quality protocols' runner (demo.py) at a cut depth -------
 
-# make_synth_data.py's arguments at the cut depth: 24 training images (3
+# data/synth.py's arguments at the cut depth: 24 training images (3
 # steps of 8), 8 held-out, 256 px images trained at 128 px as the
 # protocols are
 P14_DATA = ("--n", "24", "--n_valid", "8", "--n_masks", "8", "--size", "256")
@@ -3949,8 +3954,120 @@ def protocol_runner(device: str, card: str) -> dict:
     log(f"phase 14 band check: a fabricated miss exits {code_both} "
         f"({err.getvalue().strip().splitlines()[0]}); launches {launches}")
     errs = protocol_kernels_vs_plain(device, card, root)
+    repeats = protocol_repeats(device, card, root)
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s  [{card}]")
-    return {"paths": {"protocols": launches}, **errs}
+    return {"paths": {"protocols": launches, "protocol_repeats": repeats},
+            **errs}
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch.use_deterministic_algorithms (an op without a deterministic
+    version raises), cuDNN's deterministic algorithms, no autotuning."""
+    import torch
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = old[1:]
+
+
+def repeat_runs(mode: str, device: str, root: Path) -> list:
+    """Phase 14 (c)'s two runs of the f32 protocol's cut (3 steps at full
+    width, demo.run_protocol) at seed 0 in `mode`; returns each run's
+    launches."""
+    from deepinpainting_torch import demo
+    from deepinpainting_torch.ops import attention_cuda as TAC
+
+    cut = demo.Cut(P14_DATA, P14_TRAIN + ("--save_epoch_freq", "2"),
+                   evaluate=False)
+    per_run = []
+    for rep in (0, 1):
+        proto = dataclasses.replace(demo.PROTOCOLS["f32"],
+                                    name=f"repeat_{mode}{rep}", serve=False)
+        TAC.launches = TAC.kbar_launches = 0    # counts: this run only
+        with (deterministic_algorithms() if mode == "deterministic"
+              else contextlib.nullcontext()):
+            demo.run_protocol(proto, root, 0, device, cut)
+        per_run.append((TAC.launches, TAC.kbar_launches))
+    return per_run
+
+
+def repeat_child(result_path: str, root: str, device: str) -> int:
+    """Phase 14 (c)'s deterministic pair, in a process of its own started
+    with CUBLAS_WORKSPACE_CONFIG=:4096:8 (cuBLAS reads it once, before its
+    first call; the rest of the script keeps cuBLAS's default workspace).
+    Writes the two runs' launches to `result_path`."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deepinpainting_torch import _build
+    _build.build(_build.KERNELS)
+    per_run = repeat_runs("deterministic", device, Path(root))
+    with open(result_path, "w") as f:
+        json.dump(per_run, f)
+    return 0
+
+
+def protocol_repeats(device: str, card: str, root: Path) -> dict:
+    """Phase 14 (c): the f32 protocol's cut run twice at seed 0 under
+    cuDNN's default algorithms, whose largest per-step loss difference is
+    reported (the protocol's 20 epochs turn such differences into its
+    spread of outcomes), then twice under deterministic_algorithms() in a
+    child process (repeat_child), which must agree bit for bit in every
+    step's losses.  Returns the four runs' launches."""
+    import math
+
+    t0 = time.perf_counter()
+    per_run = repeat_runs("default", device, root)
+    result = root / "repeat_deterministic.json"
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phase14c",
+         str(result), str(root), device], cwd=here, capture_output=True,
+        text=True, timeout=CHILD_TIMEOUT_S,
+        env=dict(os.environ, PYTHONPATH=here,
+                 CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    check(res.returncode == 0, "phase 14 (c): the deterministic pair's "
+          f"process exited {res.returncode}: {res.stderr[-3000:]}")
+    with open(result) as f:
+        per_run += [tuple(run) for run in json.load(f)]
+    launches = {"scan_stream": sum(r[0] for r in per_run),
+                "kbar_build": sum(r[1] for r in per_run)}
+    rows = {}
+    for mode in ("default", "deterministic"):
+        for rep in (0, 1):
+            with open(root / "logs" /
+                      f"repeat_{mode}{rep}_seed0.metrics.csv") as f:
+                rows[mode, rep] = [{k: v for k, v in r.items()
+                                    if k != "time"} for r in csv.DictReader(f)]
+    losses = [float(v) for run in rows.values() for r in run
+              for k, v in r.items() if k != "step"]
+    check(all(map(math.isfinite, losses))
+          and all(len(run) == len(rows["default", 0])
+                  for run in rows.values()),
+          "phase 14 (c): every run's losses finite, the same steps")
+    check(len(set(per_run)) == 1 and per_run[0][0] > 0
+          and per_run[0][1] > 0,
+          f"phase 14 (c): each run launches both kernels alike {per_run}")
+    diffs = [(abs(float(a[k]) - float(b[k])),
+              abs(float(a[k]) - float(b[k])) / max(abs(float(b[k])), 1e-30))
+             for a, b in zip(rows["default", 0], rows["default", 1])
+             for k in a if k != "step"]
+    d_abs, d_rel = max(d for d, _ in diffs), max(r for _, r in diffs)
+    same = rows["deterministic", 0] == rows["deterministic", 1]
+    log(f"phase 14 (c) the f32 protocol's {len(rows['default', 0])} cut "
+        f"steps twice at seed 0: cuDNN defaults, largest loss difference "
+        f"{d_abs:.3e} ({d_rel:.3e} relative); deterministic algorithms, "
+        f"bit for bit {same}; launches a run {per_run[0]}; "
+        f"{time.perf_counter() - t0:.1f} s  [{card}]")
+    check(same, "phase 14 (c): two runs under deterministic algorithms must "
+          "agree bit for bit")
+    return launches
 
 
 def protocol_kernels_vs_plain(device: str, card: str, root: Path) -> dict:
@@ -4755,6 +4872,8 @@ if __name__ == "__main__":
         sys.exit(dp_cli_child(sys.argv[2], sys.argv[4:]))
     if sys.argv[1:2] == ["--phase12c"]:     # phase 12 (c)'s ranks
         sys.exit(sp_cli_child(sys.argv[2], sys.argv[4:]))
+    if sys.argv[1:2] == ["--phase14c"]:     # phase 14 (c)'s pair
+        sys.exit(repeat_child(*sys.argv[2:5]))
     if sys.argv[1:3] == ["--phase", "14"]:  # the build and phase 14 alone
         sys.exit(phase14_only())
     sys.exit(main())

@@ -1,6 +1,6 @@
 """The quality protocols of the port: the JAX package's recorded training
-runs (artifacts/*, scripts/round5_runs.sh) through the port's own entry
-points, on the card, each held to JAX's records.
+runs (artifacts/*, the JAX repository's round5_runs.sh) through the
+port's own entry points, on the card, each held to JAX's records.
 
     python -m deepinpainting_torch.demo --out build/demo          # f32
     python -m deepinpainting_torch.demo --out build/demo --protocol bf16 \
@@ -8,9 +8,10 @@ points, on the card, each held to JAX's records.
     python -m deepinpainting_torch.demo --out build/demo --protocol all
 
 A protocol (PROTOCOLS) is one recorded run of the JAX package:
-  1. data: scripts/make_synth_data.py in a subprocess (numpy and PIL only,
-     so the data are those of the JAX runs), under --out/data, shared by
-     the protocols that ask for the same generator arguments;
+  1. data: data/synth.py in this process (the JAX repository's
+     make_synth_data.py, byte for byte, so the data are those of the JAX
+     runs), under --out/data, shared by the protocols that ask for the
+     same generator arguments;
   2. training: `_cli train` in this process with COMMON (round5_runs.sh's
      COMMON: 128 px, batch 8, 10 + 10 epochs, a checkpoint every 5, the
      NaN guard), the protocol's overrides, refs = images, the validation
@@ -60,23 +61,21 @@ import math
 import os
 import re
 import shutil
-import subprocess
 import sys
 import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
 
-REPO = Path(__file__).resolve().parents[1]
 SPREAD_PSNR = 0.14        # JAX's run-to-run spread (dB)
 SPREAD_SSIM = 0.005
 TPU_SSIM_OFFSET = 0.012   # CPU minus TPU SSIM of one JAX checkpoint
 
-# scripts/round5_runs.sh's COMMON, less the data directories
+# round5_runs.sh's COMMON, less the data directories
 COMMON = ("--fine_size", "128", "--batch_size", "8", "--niter", "10",
           "--niter_decay", "10", "--save_epoch_freq", "5",
           "--display_freq", "400", "--debug_nan", "true")
-# scripts/make_synth_data.py's arguments of each recorded dataset
+# the generator arguments (data/synth.py) of each recorded dataset
 DATA = {"synth": ("--n", "300", "--n_valid", "32", "--size", "256"),
         "synth512": ("--n", "300", "--n_valid", "32", "--size", "512"),
         "synth256": ("--n", "2000", "--n_valid", "64", "--n_masks", "128",
@@ -303,22 +302,20 @@ def _since(before: dict) -> dict:
 
 
 def make_data(out: Path, args: tuple) -> tuple:
-    """scripts/make_synth_data.py with `args` into out/data/<args>, once:
-    a generator that finds the directory in place uses it, and one that
-    loses a race to write it drops its own copy (the same seed draws the
-    same data).  Returns (directory, seconds)."""
+    """data/synth.py's dataset of the generator arguments `args` into
+    out/data/<args>, once: a generator that finds the directory in place
+    uses it, and one that loses a race to write it drops its own copy (the
+    same seed draws the same data).  Returns (directory, seconds)."""
+    from .data import synth
+
     final = out / "data" / "_".join(a.lstrip("-") for a in args)
     if (final / "valid").is_dir():
         return final, 0.0
     tmp = final.with_name(f"{final.name}.tmp{os.getpid()}")
     final.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    res = subprocess.run(
-        [sys.executable, str(REPO / "scripts" / "make_synth_data.py"),
-         "--out", str(tmp), *args], capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"make_synth_data {args} exited "
-                           f"{res.returncode}:\n{res.stderr[-4000:]}")
+    a = synth.parse_args(["--out", str(tmp), *args])
+    synth.write(a.out, a.n, a.n_valid, a.n_masks, a.size, a.seed)
     try:
         os.rename(tmp, final)
     except OSError:

@@ -89,6 +89,19 @@ def test_sources_import_no_jax():
     assert not [f.name for f in data if top_torch.search(f.read_text())]
 
 
+def test_sources_name_nothing_under_scripts():
+    """The port keeps its own copy of what it needs from the JAX
+    repository's scripts/ (data/synth.py): no source of the port, and not
+    chip_smoke.py, names a path under it or runs it."""
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    pattern = re.compile(r"\bscripts\b\s*[/\\'\"]")
+    offenders = [f"{f.relative_to(REPO)}:{i}: {line.strip()}"
+                 for f in files
+                 for i, line in enumerate(f.read_text().splitlines(), 1)
+                 if pattern.search(line)]
+    assert not offenders, offenders
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
