@@ -143,7 +143,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      under deterministic algorithms (bit for bit), the latter in a child
      process with CUBLAS_WORKSPACE_CONFIG=:4096:8.
      `python3 chip_smoke.py --phase 14` runs the build and this phase
-     alone, with no result line.
+     alone, with no result line;
+ 15. the f32 protocol's first 8 train steps at full width (128 px, batch
+     8, ngf 64) from the JAX trainer's own seed-0 draw (the packed
+     artifacts/jax_cpu_f32/jax_draw_ngf64_s0.npz, every leaf's SHA-256
+     checked) on the first batches its trainer draws: step 1's losses
+     against the JAX package's on the CPU from the same draw and batches
+     (artifacts/jax_cpu_f32/fullwidth_s0/pair.json), steps 2-8 printed
+     beside 8x JAX's one-ulp envelope, and (b) netP's first gradient
+     against its f64 recomputation.  `python3 chip_smoke.py --phase 15`
+     runs the build and this phase alone.
 Three lines end the output, each on its own: a JSON object with a `kernels`
 list, the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -4190,9 +4199,160 @@ def protocol_kernels_vs_plain(device: str, card: str, root: Path) -> dict:
     return {"max_abs_err": max(d_out, d_ab), "kbar_max_abs_err": d_kbar}
 
 
-def phase14_only() -> int:
-    """`python3 chip_smoke.py --phase 14`: the build and phase 14 alone,
-    for working on the runner; prints no result line."""
+# ---- phase 15: the f32 protocol's first steps at full width, JAX's draw ----
+
+# the JAX trainer's own init_params at seed 0 at the protocol's full width
+# (studies/jax_draw.py pack: 6.8 MB, unpacked by numpy, every leaf's
+# SHA-256 checked) and the JAX package's steps on the CPU from it on the
+# same batches (studies/jax_cpu_protocol.py --run pairjax: per-step
+# losses and 8x JAX's own one-ulp envelope)
+P15_DRAW = "artifacts/jax_cpu_f32/jax_draw_ngf64_s0.npz"
+P15_RECORD = "artifacts/jax_cpu_f32/fullwidth_s0/pair.json"
+P15_STEPS = 8
+P15_LOSS_RTOL = 1e-5   # D, F, G_L1, cosis at step 1 (no Adam step before)
+P15_G_GAN_RTOL = 1e-3  # after D's and F's first Adam step (8x JAX's nudges)
+
+
+def fullwidth_steps(device: str, card: str) -> dict:
+    """Phase 15: the port's make_train_step at the f32 protocol's full
+    width (demo.COMMON: 128 px, batch 8, ngf = ndf = 64, VGG at full
+    width) from the JAX trainer's own seed-0 draw (P15_DRAW), on the first
+    P15_STEPS batches its trainer draws from the protocol's data
+    (data/synth.py, the port's loader: epoch 1's BatchIterator at seed 1).
+    Step 1's losses are held to the JAX package's on the CPU from the same
+    draw and batch (P15_RECORD): D, F, G_L1 and cosis within 1e-5
+    relative, G_GAN within 1e-3.  Steps 2-8 are printed beside 8x JAX's
+    one-ulp envelope (a departure over 1.0 of it is reported, not held:
+    the loop is chaotic from step 2).  (b) netP's first gradient against
+    its recomputation in f64 on the same device (the norms' statistics
+    too), and so an f32 recomputation with cuDNN off: the largest and
+    median relative error of a weight printed.
+    Returns the path's launches."""
+    import copy
+    import math
+
+    import torch
+
+    from deepinpainting_torch import demo
+    from deepinpainting_torch.convert.jax_bridge import load_flat
+    from deepinpainting_torch.data import BatchIterator, InpaintDataset
+    from deepinpainting_torch.engine import inpaint as TI
+    from deepinpainting_torch.losses import l1_loss
+    from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.ops import convs as TC
+    from deepinpainting_torch.ops import masks as TM
+
+    t_phase = time.perf_counter()
+    here = Path(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, str(here / "studies"))
+    import jax_draw
+    t0 = time.perf_counter()
+    nets, report = jax_draw.load(here / P15_DRAW, workers=os.cpu_count())
+    check(report["exact"], f"phase 15: the packed draw's leaves {report}")
+    load_s = time.perf_counter() - t0
+    with open(here / P15_RECORD) as f:
+        record = json.load(f)
+    dev = torch.device(device)
+    cfg = demo.train_config(list(demo.COMMON))
+    check((cfg.fine_size, cfg.batch_size, cfg.ngf, cfg.ndf,
+           cfg.vgg_width_scale) == (128, 8, record["ngf"], record["ngf"],
+                                    1.0), "phase 15: the protocol's width")
+    state = TI.create_state(cfg, torch.Generator().manual_seed(0), dev)
+    for net in ("G", "P", "D", "F", "vgg"):
+        load_flat(getattr(state, net), nets[net])
+    del nets
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_phase15_", dir=BUILD))
+    atexit.register(shutil.rmtree, str(root), True)
+    t0 = time.perf_counter()
+    data, _ = demo.make_data(root, demo.DATA["synth"])
+    ds = InpaintDataset(f"{data}/img", f"{data}/mask", f"{data}/img",
+                        cfg.fine_size, seed=cfg.seed)
+    it = iter(BatchIterator(ds, cfg.batch_size, seed=cfg.seed + 1))
+    batches = [next(it) for _ in range(P15_STEPS)]
+    data_s = time.perf_counter() - t0
+    P0 = copy.deepcopy(state.P)              # netP before its first step
+
+    step = TI.make_train_step(cfg, dev)
+    TAC.launches = TAC.kbar_launches = 0     # counts: this path only
+    losses, first = [], None
+    t0 = time.perf_counter()
+    for batch in batches:
+        _, m = step(state, batch)
+        losses.append({k: float(m[k]) for k in record["jax_losses"][0]})
+        if first is None:        # netP's first gradient: Adam's (1-b1) g
+            first = [state.opt_P.state[p]["exp_avg"] / (1 - cfg.beta1)
+                     for p in state.P.parameters()]
+    steps_s = time.perf_counter() - t0
+    launches = {"scan_stream": TAC.launches, "kbar_build": TAC.kbar_launches}
+    per_step = step_launches(cfg)
+    check(launches == {k: P15_STEPS * v for k, v in per_step.items()},
+          f"phase 15 launches {launches}")
+    check(all(math.isfinite(v) for m in losses for v in m.values()),
+          "phase 15: every loss finite")
+
+    jax1, card1 = record["jax_losses"][0], losses[0]
+    rel = {k: abs(card1[k] - jax1[k]) / abs(jax1[k]) for k in jax1}
+    log(f"phase 15 step 1 at full width from JAX's seed-0 draw "
+        f"({report['leaves']} leaves, SHA-256 exact, unpacked in "
+        f"{load_s:.1f} s; data {data_s:.1f} s): "
+        + ", ".join(f"{k} {card1[k]:.6f} (JAX CPU {jax1[k]:.6f}, "
+                    f"{rel[k]:.2e} rel)" for k in jax1))
+    for k, v in rel.items():
+        check(v <= (P15_G_GAN_RTOL if k == "G_GAN" else P15_LOSS_RTOL),
+              f"phase 15 step 1 {k}: {card1[k]!r} against JAX's "
+              f"{jax1[k]!r}, {v:.3e} relative")
+    worst = []
+    for i in range(1, P15_STEPS):
+        ratio = {k: abs(losses[i][k] - record["jax_losses"][i][k])
+                 / record["limit"][k][i] for k in jax1}
+        worst.append(max(ratio.values()))
+        log(f"phase 15 step {i + 1}: " + ", ".join(
+            f"{k} {losses[i][k]:.4f} (JAX {record['jax_losses'][i][k]:.4f}, "
+            f"{ratio[k]:.2f} of 8x JAX's envelope)" for k in jax1))
+
+    # (b) netP's first gradient against its f64 recomputation
+    gt = TI.normalize_image(torch.from_numpy(batches[0]["image"]).to(dev)
+                            ).permute(0, 3, 1, 2)
+    mask = TI.resolve_mask(cfg, TI.normalize_mask(
+        torch.from_numpy(batches[0]["mask"]).to(dev)))
+    P64 = copy.deepcopy(P0).double()
+    gt64 = gt.double()
+    f32_norm = TC.InstanceNorm.forward       # its statistics in f64 too
+    TC.InstanceNorm.forward = lambda self, x: torch.nn.functional.\
+        instance_norm(x, weight=self.weight, bias=self.bias, eps=self.eps)
+    try:
+        loss = l1_loss(P64(TM.fill_hole_with_mean(gt64, mask.double())),
+                       gt64) * cfg.lambda_A
+        g64 = torch.autograd.grad(loss, list(P64.parameters()))
+    finally:
+        TC.InstanceNorm.forward = f32_norm
+    with torch.backends.cudnn.flags(enabled=False):   # ATen's own convs
+        P32 = copy.deepcopy(P0)
+        loss = l1_loss(P32(TM.fill_hole_with_mean(gt, mask)),
+                       gt) * cfg.lambda_A
+        native = torch.autograd.grad(loss, list(P32.parameters()))
+
+    def weight_errors(grads) -> str:
+        errs = {name: float((g.double() - ref).norm()
+                            / ref.norm().clamp_min(1e-300))
+                for (name, _), g, ref in zip(P64.named_parameters(), grads,
+                                             g64) if name.endswith("weight")}
+        top = max(errs, key=errs.get)
+        return (f"largest {errs[top]:.2e} ({top}), median "
+                f"{statistics.median(errs.values()):.2e}")
+    log(f"phase 15 (b) netP's first gradient against its f64 recomputation, "
+        f"relative error of a weight: the step's (cuDNN) "
+        f"{weight_errors(first)}; recomputed in f32 without cuDNN "
+        f"{weight_errors(native)}")
+    log(f"phase 15: {P15_STEPS} steps in {steps_s:.1f} s, launches "
+        f"{launches}; steps 2-{P15_STEPS} at most {max(worst):.2f} of 8x "
+        f"JAX's envelope; {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return {"fullwidth_steps": launches}
+
+
+def phase_only(run) -> int:
+    """`python3 chip_smoke.py --phase 14` (or 15): the build and that phase
+    alone, for working on it; prints no result line."""
     import torch
     if not torch.cuda.is_available():
         print("[chip_smoke] FAIL: torch.cuda.is_available() is False",
@@ -4201,7 +4361,7 @@ def phase14_only() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deepinpainting_torch import _build
     _build.build(_build.KERNELS)
-    protocol_runner("cuda", card_line())
+    run("cuda", card_line())
     return 0
 
 
@@ -4813,12 +4973,17 @@ def main() -> int:
     max_abs_err = max(max_abs_err, p14["max_abs_err"])
     kbar_max_abs_err = max(kbar_max_abs_err, p14["kbar_max_abs_err"])
 
+    # ---- phase 15: the f32 protocol's first steps from JAX's draw ---------
+    torch.cuda.empty_cache()
+    p15 = fullwidth_steps("cuda", card)
+
     # `launches` sums the main paths (serving, the train step, the trainer,
     # evaluate, phase 8's bf16 / remat / grad_accum paths, phase 9's
     # serving program, phase 10's int8 and packed paths, phase 11's
     # data-parallel paths, phase 12's spatially partitioned ones, each
     # rank's launches counted, phase 13's paths from the imported
-    # reference checkpoints, and phase 14's protocol runs); the
+    # reference checkpoints, phase 14's protocol runs and phase 15's
+    # full-width steps from JAX's draw); the
     # times are those at B=8, N=1024, the shapes a 256 px train step gives
     # both: `ms` a launch of 20 back to back, `single_launch_ms` the median
     # of single launches, each between its own pair of events.  `n4096`
@@ -4832,7 +4997,7 @@ def main() -> int:
                                for paths in (p8["paths"], p9,
                                              p10["paths"], p11["paths"],
                                              p12["paths"], p13,
-                                             p14["paths"])
+                                             p14["paths"], p15)
                                for path, n in paths.items()}}
     n4096 = lambda name: {
         f"B{b}": {k: t[name][k] for k in ("ms", "single_ms", "plain_ms",
@@ -4875,5 +5040,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase14c"]:     # phase 14 (c)'s pair
         sys.exit(repeat_child(*sys.argv[2:5]))
     if sys.argv[1:3] == ["--phase", "14"]:  # the build and phase 14 alone
-        sys.exit(phase14_only())
+        sys.exit(phase_only(protocol_runner))
+    if sys.argv[1:3] == ["--phase", "15"]:  # the build and phase 15 alone
+        sys.exit(phase_only(fullwidth_steps))
     sys.exit(main())

@@ -124,15 +124,23 @@ _TRUNC_OFF = ("--faithful_backward_truncation", "false")
 _COSIS_OFF = ("--faithful_detached_cosis", "false")
 _KR_OFF = ("--faithful_known_replacement", "false")
 
+# The f32 records marked "round 2" below come from one checkpoint made by
+# older code (artifacts/train_demo, the JAX repository's round 2): its
+# step-1 D and cosis depart by 4-11% from every seed-0 record of the
+# current code on the same first batch, where those agree within 1%
+# (tests/test_torch_fullwidth_step.py).  The bands still include them.
 PROTOCOLS = {p.name: p for p in (
     Protocol("f32", (), (
         Evaluation("e5", 5, (
+            # round 2
             Record(25.11, 0.735, _log("train_demo/eval_epoch05.log")),
             Record(24.67, 0.727, _log("kr_ablation/eval_faithful_e05.log")))),
         Evaluation("e20", 20, (
+            # round 2
             Record(28.04, 0.803, _log("train_demo/eval_epoch20.log")),
             Record(28.11, 0.802,
                    _log("kr_ablation/eval_faithful_e20_kr_true.log")),
+            # round 2's checkpoint, evaluated on a CPU
             Record(28.04, 0.815, "BENCH_NOTES.md:358"))),
         Evaluation("e20_kr", 20, (
             Record(28.11, 0.802,
@@ -140,7 +148,7 @@ PROTOCOLS = {p.name: p for p in (
             Record(28.11, 0.802,
                    _log("kr_ablation/eval_faithful_e20_kr_false.log"))),
             flags=_KR_OFF, kind="kr", base="e20"),
-        Evaluation("e20_int8", 20, (
+        Evaluation("e20_int8", 20, (      # round 2's checkpoint, both
             Record(28.04, 0.815, "BENCH_NOTES.md:358"),
             Record(28.04, 0.813, "BENCH_NOTES.md:359")),
             flags=("--quant", "int8"), kind="int8", base="e20")),

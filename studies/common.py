@@ -15,6 +15,7 @@ TESTS = REPO / "tests"
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 LOSSES = ("D", "F", "G_GAN", "G_L1", "cosis")
+EPOCH_STEPS = 37        # the 128 px protocols: 300 images, batches of 8
 
 
 def seeds(text: str) -> list:

@@ -10,7 +10,11 @@ draw of the outcome.
     for byte the data make_synth_data.py writes);
   * `pair`: both packages from the same starting weights on the same
     batch stream for --steps steps, with JAX's own envelope over four
-    one-ulp nudges (tests/torch_trajectory.py), per step;
+    one-ulp nudges (tests/torch_trajectory.py), per step: the numpy draw
+    of the seed and synth_batches;
+  * `pairjax`: the same from JAX's own init_params at the seed, on the
+    batches JAX's trainer draws from the protocol's data (37 steps an
+    epoch; at ngf 64 about 1.2 h on 8 cores, ~35 GB);
   * `init` / `portinit`: the JAX trainer's / the port's starting weights
     at a seed to <out>/jax_init/s<seed>/<net>.npz / <out>/port_init/...
     (flat JAX dicts; studies/protocol_spread.py --init_from reads them);
@@ -22,6 +26,8 @@ draw of the outcome.
         --run jax:0-3 --run pair:0 --steps 74
     python studies/jax_cpu_protocol.py --out build/jaxcpu --ngf 16 \
         --run jaxfrom:1 --run portfrom:1 --init_root DRAWS
+    python studies/jax_cpu_protocol.py --out build/jaxcpu64 --ngf 64 \
+        --run pairjax:0 --steps 37
 
 Results go to <out>/results/<kind>_s<seed>.json and are printed.
 """
@@ -102,23 +108,23 @@ def jax_run(out: Path, data: Path, ngf: int, seed: int,
     epochs = (1, 2) if short else (5, 20)
     cut = (("--niter", "1", "--niter_decay", "1", "--save_epoch_freq", "1")
            if short else ())
-    common = ["--dataroot", str(data / "img"), "--maskroot",
-              str(data / "mask"), "--refroot", str(data / "img"),
-              "--validroot", str(data / "valid"), "--validrefroot",
-              str(data / "valid"), *demo.COMMON, *width(ngf),
-              "--attention_impl", "lax", "--seed", str(seed),
-              "--checkpoints_dir", str(ckpt), "--name", name, *cut]
+    flags = ["--dataroot", str(data / "img"), "--maskroot",
+             str(data / "mask"), "--refroot", str(data / "img"),
+             "--validroot", str(data / "valid"), "--validrefroot",
+             str(data / "valid"), *demo.COMMON, *width(ngf),
+             "--attention_impl", "lax", "--seed", str(seed),
+             "--checkpoints_dir", str(ckpt), "--name", name, *cut]
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     logs = out / "logs"
     logs.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     if init_root:
         cmd = [sys.executable, "-c", _FROM_FILES,
-               str(init_root / f"s{seed}"), "--cpu", *common]
+               str(init_root / f"s{seed}"), "--cpu", *flags]
         env["PYTHONPATH"] = str(REPO)
     else:
         cmd = [sys.executable, str(REPO / "scripts" / "train.py"), "--cpu",
-               *common]
+               *flags]
     with open(logs / f"{name}.train.log", "w") as log:
         subprocess.run(cmd, env=env, stdout=log, stderr=subprocess.STDOUT,
                        check=True)
@@ -178,10 +184,13 @@ def port_run(out: Path, ngf: int, seed: int, init_root: Path) -> dict:
     return dict(fig, kind=proto.name, ngf=ngf)
 
 
-def pair_run(ngf: int, seed: int, steps: int) -> dict:
+def pair_run(ngf: int, seed: int, steps: int, data: Path = None) -> dict:
     """Both packages from the same weights on the same stream; JAX's own
     four-nudge envelope; per step the departures and their ratio to 8x
-    the envelope."""
+    the envelope, and the first step out of it.  `data` (pairjax): JAX's
+    own init_params at `seed` and the batches its trainer draws from that
+    protocol data directory, in place of the numpy draw and
+    synth_batches."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, str(common.TESTS))
@@ -191,21 +200,33 @@ def pair_run(ngf: int, seed: int, steps: int) -> dict:
                   vgg_width_scale=ngf / 64, mask_type="random",
                   attention_impl="lax")
     t0 = time.perf_counter()
-    tr = TT.trajectory(fields, steps, seed=seed, batch_seed=seed)
-    port = TT.port_run(fields, tr["params"], tr["batches"])
-    dep = TT.departures(port, tr["ref"])
+    batches = (TT.trainer_batches(data, 128, 8, steps, seed) if data
+               else None)
+    tr = TT.trajectory(fields, steps, seed=seed, batch_seed=seed,
+                       jax_init=data is not None, batches=batches)
+    port = tr["ports"]["port"]
     lim = TT.limits(tr)
-    ratio = {k: (np.asarray(dep[k]) / lim[k]).tolist() for k in lim}
+    ratio = {k: (np.asarray(port[k]) / lim[k]).tolist() for k in lim}
     first = {k: next((i + 1 for i, r in enumerate(v) if r > 1.0), None)
              for k, v in ratio.items()}
-    return {"kind": "pair", "seed": seed, "ngf": ngf, "steps": steps,
-            "seconds": time.perf_counter() - t0,
+    per = min(steps, common.EPOCH_STEPS)
+    mean = lambda losses: float(np.mean([m["G_L1"] for m in losses[:per]]))
+    return {"kind": "pairjax" if data else "pair", "seed": seed, "ngf": ngf,
+            "steps": steps, "seconds": time.perf_counter() - t0,
             "jax_losses": tr["ref"]["losses"],
+            "nudge_losses": [d["losses"] for d in tr["nudged"]],
             "port_losses": port["losses"],
-            "departure": {k: list(map(float, dep[k])) for k in lim},
+            "departure": {k: list(map(float, port[k])) for k in lim},
             "envelope": {k: list(map(float, v))
                          for k, v in tr["envelope"].items()},
-            "ratio_to_limit": ratio, "first_step_out": first}
+            "limit": {k: list(map(float, v)) for k, v in lim.items()},
+            "ratio_to_limit": ratio, "first_step_out": first,
+            "grad_G": {"port": port["grad_G"],
+                       "nudges": [d["grad_G"] for d in tr["nudged"]]},
+            f"G_L1_mean_first_{per}": {
+                "jax": mean(tr["ref"]["losses"]),
+                "nudges": [mean(d["losses"]) for d in tr["nudged"]],
+                "port": mean(port["losses"])}}
 
 
 def main(argv=None) -> int:
@@ -213,8 +234,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", required=True)
     ap.add_argument("--ngf", type=int, default=16)
     ap.add_argument("--run", action="append", default=[],
-                    help="jax, pair, init, portinit, jaxfrom or "
-                         "portfrom:SEEDS (a-b or a,b)")
+                    help="jax, pair, pairjax, init, portinit, jaxfrom "
+                         "or portfrom:SEEDS (a-b or a,b)")
     ap.add_argument("--init_root", default="",
                     help="jaxfrom / portfrom: the weights under "
                          "INIT_ROOT/s<seed>/<net>.npz")
@@ -240,6 +261,8 @@ def main(argv=None) -> int:
                 fig = port_run(out, args.ngf, seed, root)
             elif kind == "pair":
                 fig = pair_run(args.ngf, seed, args.steps)
+            elif kind == "pairjax":
+                fig = pair_run(args.ngf, seed, args.steps, data)
             elif kind == "init":
                 fig = jax_init(out, args.ngf, seed)
             elif kind == "portinit":

@@ -16,7 +16,9 @@ SHA-256 against JAX's.
 `unpack` (numpy only) writes DIR/s<seed>/{G,P,D,F,vgg}.npz, flat dicts
 as the JAX package's export_network_npz writes them, which
 studies/protocol_spread.py --init_from reads; protocol_spread.py also
-takes the packed file itself.
+takes the packed file itself, and `load` gives the checked draw in
+memory (chip_smoke.py phase 15 reads the committed
+artifacts/jax_cpu_f32/jax_draw_ngf64_s0.npz so).
 """
 
 from __future__ import annotations
@@ -191,37 +193,64 @@ def pack(out: Path, ngf: int, seed: int, size: int = 128) -> dict:
             "bytes": out.stat().st_size}
 
 
-def unpack(packed: Path, root: Path) -> dict:
-    """The packed draw to root/s<seed>/<net>.npz; every leaf checked
-    against JAX's SHA-256 (a leaf whose recomputation differs from the
-    packing machine's is named, with its elements off)."""
+def _leaf(packed: Path, name: str, entry: dict) -> tuple:
+    """One leaf of the packed draw: (name, leaf, what is wrong or "")."""
+    wrong = ""
+    with np.load(packed) as f:
+        if "kind" not in entry:
+            leaf = f[name]
+        else:
+            shape = tuple(entry["shape"])
+            O = draw(entry["kind"], np.asarray(entry["key"], np.uint32),
+                     int(np.prod(shape)), entry["a"], entry["b"])
+            leaf = O * _F(entry["scale"])
+            if _sha(leaf) != entry["repro_sha256"]:
+                wrong = "recomputation differs"
+            leaf[f[name + ":miss"]] = f[name + ":value"]
+            leaf = leaf.reshape(shape)
+    if _sha(leaf) != entry["sha256"]:
+        wrong = wrong or "leaf differs"
+    return name, leaf, wrong
+
+
+def load(packed: Path, workers: int = 0) -> tuple:
+    """The packed draw in memory: ({net: {flat name: leaf}}, report), each
+    leaf checked against JAX's SHA-256 (a leaf whose recomputation
+    differs from the packing machine's is named in report["wrong"]).
+    `workers` > 0 recomputes the leaves in that many processes."""
     with np.load(packed) as f:
         meta = json.loads(bytes(f["meta"]).decode())
-        nets = {net: {} for net in NETS}
-        wrong = {}
-        for name, entry in meta["leaves"].items():
-            net, path = name.split(":")
-            if "kind" not in entry:
-                leaf = f[name]
-            else:
-                shape = tuple(entry["shape"])
-                O = draw(entry["kind"], np.asarray(entry["key"], np.uint32),
-                         int(np.prod(shape)), entry["a"], entry["b"])
-                leaf = O * _F(entry["scale"])
-                if _sha(leaf) != entry["repro_sha256"]:
-                    wrong[name] = "recomputation differs"
-                leaf[f[name + ":miss"]] = f[name + ":value"]
-                leaf = leaf.reshape(shape)
-            if _sha(leaf) != entry["sha256"]:
-                wrong[name] = wrong.get(name, "leaf differs")
-            nets[net][path] = leaf
-    out = root / f"s{meta['seed']}"
+    jobs = sorted(((packed, name, entry)          # the largest first
+                   for name, entry in meta["leaves"].items()),
+                  key=lambda job: -int(np.prod(job[2]["shape"])))
+    if workers > 0:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        with ProcessPoolExecutor(workers, multiprocessing.get_context(
+                "spawn")) as pool:
+            leaves = list(pool.map(_leaf, *zip(*jobs)))
+    else:
+        leaves = [_leaf(*job) for job in jobs]
+    nets = {net: {} for net in NETS}
+    wrong = {}
+    for name, leaf, why in leaves:
+        net, path = name.split(":")
+        nets[net][path] = leaf
+        if why:
+            wrong[name] = why
+    return nets, {"seed": meta["seed"], "ngf": meta["ngf"],
+                  "leaves": len(meta["leaves"]), "exact": not wrong,
+                  "wrong": wrong}
+
+
+def unpack(packed: Path, root: Path) -> dict:
+    """The packed draw to root/s<seed>/<net>.npz (load's check)."""
+    nets, report = load(packed)
+    out = root / f"s{report['seed']}"
     out.mkdir(parents=True, exist_ok=True)
     for net, flat in nets.items():
         np.savez(out / f"{net}.npz", **flat)
-    return {"seed": meta["seed"], "ngf": meta["ngf"],
-            "leaves": len(meta["leaves"]), "exact": not wrong,
-            "wrong": wrong}
+    return report
 
 
 def main(argv=None) -> int:

@@ -19,9 +19,7 @@ import argparse
 import json
 from pathlib import Path
 
-from common import LOSSES, REPO, epoch_means
-
-STEPS_PER_EPOCH = 37
+from common import EPOCH_STEPS, LOSSES, REPO, epoch_means
 
 
 def main(argv=None) -> int:
@@ -70,11 +68,11 @@ def main(argv=None) -> int:
     pooled = [r for r in runs if r["mode"] in args.modes.split(",")]
     curves = {(r["mode"], r["seed"], r["rep"]): epoch_means(
         root / "logs" / f"{r['mode']}r{r['rep']}_seed{r['seed']}"
-        ".metrics.csv", STEPS_PER_EPOCH) for r in pooled}
+        ".metrics.csv", EPOCH_STEPS) for r in pooled}
     low = [k for k, r in zip(curves, pooled) if r["psnr_e20"] < args.cut]
     high = [k for k, r in zip(curves, pooled) if r["psnr_e20"] >= args.cut]
     jax = epoch_means(REPO / "artifacts" / "train_demo" / "metrics.csv",
-                      STEPS_PER_EPOCH)
+                      EPOCH_STEPS)
     print(f"\nepoch means over {len(high)} upper and {len(low)} lower runs "
           f"({args.modes}); 'parts' = no overlap; JAX's recorded run")
     for k in LOSSES:

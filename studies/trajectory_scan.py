@@ -37,12 +37,11 @@ def scan(steps: int, draws, names) -> None:
     for name in names:
         fields = dict(BASE, **PROTOCOLS[name])
         for seed in draws:
-            tr = TT.trajectory(fields, steps, seed=seed, batch_seed=0)
-            port = TT.port_run(fields, tr["params"], tr["batches"])
-            ctrl = TT.port_run(fields, tr["params"], tr["batches"],
-                               adam_count=1)
-            ex = TT.excess(TT.departures(port, tr["ref"]), tr)
-            exc = TT.excess(TT.departures(ctrl, tr["ref"]), tr)
+            tr = TT.trajectory(fields, steps, seed=seed, batch_seed=0,
+                               ports={"port": {},
+                                      "control": {"adam_count": 1}})
+            ex = TT.excess(tr["ports"]["port"], tr)
+            exc = TT.excess(tr["ports"]["control"], tr)
             print(f"{name} draw {seed}: port {max(ex.values()):.3f} of the "
                   f"limit (worst {max(ex, key=ex.get)}), control "
                   f"{max(exc.values()):.2f}", flush=True)

@@ -89,6 +89,50 @@ def test_sources_import_no_jax():
     assert not [f.name for f in data if top_torch.search(f.read_text())]
 
 
+def test_packed_draw_loads_without_jax(tmp_path):
+    """chip_smoke.py phase 15 reads the JAX trainer's packed draw through
+    studies/jax_draw.py::load, which must load none of FORBIDDEN: a tiny
+    packed file (one leaf stored as it is, one recomputed from its key
+    with a patched element) loads exact in a fresh process, in worker
+    processes too, and no module of FORBIDDEN is loaded."""
+    code = (
+        "import hashlib, json, sys\n"
+        "import numpy as np\n"
+        "sys.path.insert(0, 'studies')\n"
+        "import chip_smoke, jax_draw\n"
+        "sha = lambda a: hashlib.sha256(a.tobytes()).hexdigest()\n"
+        "bias = np.arange(4, dtype=np.float32)\n"
+        "o = jax_draw.draw('normal', np.array([0, 7], np.uint32), 96)\n"
+        "leaf = (o * np.float32(0.02)).astype(np.float32)\n"
+        "repro = sha(leaf)\n"
+        "leaf[5] = 1.5\n"
+        "meta = {'ngf': 8, 'seed': 0, 'leaves': {\n"
+        "    'G:conv/bias': {'shape': [4], 'sha256': sha(bias)},\n"
+        "    'G:conv/kernel': {'shape': [2, 48], 'sha256': sha(leaf),\n"
+        "        'kind': 'normal', 'key': [0, 7], 'scale': 0.02,\n"
+        "        'a': None, 'b': None, 'misses': 1,\n"
+        "        'repro_sha256': repro}}}\n"
+        f"path = {str(tmp_path / 'draw.npz')!r}\n"
+        "np.savez(path, **{'G:conv/bias': bias,\n"
+        "    'G:conv/kernel:miss': np.array([5], np.uint32),\n"
+        "    'G:conv/kernel:value': np.array([1.5], np.float32),\n"
+        "    'meta': np.frombuffer(json.dumps(meta).encode(), np.uint8)})\n"
+        "for workers in (0, 2):\n"
+        "    nets, report = jax_draw.load(path, workers)\n"
+        "    assert report['exact'], report\n"
+        "    assert np.array_equal(nets['G']['conv/kernel'].ravel(), leaf)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    script = tmp_path / "load_draw.py"
+    script.write_text("if __name__ == '__main__':\n" + "".join(
+        "    " + line + "\n" for line in code.splitlines()))
+    res = subprocess.run([sys.executable, str(script)], cwd=REPO,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_sources_name_nothing_under_scripts():
     """The port keeps its own copy of what it needs from the JAX
     repository's scripts/ (data/synth.py): no source of the port, and not

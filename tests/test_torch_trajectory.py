@@ -39,13 +39,14 @@ PROTOCOLS = {
 @pytest.fixture(scope="module", params=sorted(PROTOCOLS))
 def run(request):
     fields = dict(BASE, **PROTOCOLS[request.param])
-    return fields, TT.trajectory(fields, STEPS, SEED, BATCH_SEED)
+    return fields, TT.trajectory(fields, STEPS, SEED, BATCH_SEED, ports={
+        "port": {}, "control": {"adam_count": 1}})
 
 
 def test_port_stays_in_jax_envelope(run):
     fields, tr = run
-    port = TT.port_run(fields, tr["params"], tr["batches"])
-    ex = TT.excess(TT.departures(port, tr["ref"]), tr)
+    port = tr["ports"]["port"]
+    ex = TT.excess(port, tr)
     assert len(port["losses"]) == STEPS
     assert max(ex.values()) <= 1.0, ex
 
@@ -54,6 +55,5 @@ def test_control_adam_count_off_by_one_leaves_envelope(run):
     """The same port run with every Adam one step ahead (bias
     corrections of step k + 1): the check above must refuse it."""
     fields, tr = run
-    port = TT.port_run(fields, tr["params"], tr["batches"], adam_count=1)
-    ex = TT.excess(TT.departures(port, tr["ref"]), tr)
+    ex = TT.excess(tr["ports"]["control"], tr)
     assert max(ex.values()) > 1.0, ex

@@ -27,8 +27,7 @@ FACTOR = 2.0
 def test_step_two_event_is_crossed_by_jax_too():
     tr = TT.trajectory(FIELDS, STEPS, seed=0, batch_seed=0, nudges=NUDGES,
                        jax_init=True)
-    port = TT.port_run(FIELDS, tr["params"], tr["batches"])
-    dep = TT.departures(port, tr["ref"])
+    dep = port = tr["ports"]["port"]
     # the first four nudges (the trajectory tests' envelope) miss it
     four = dict(tr, envelope={k: np.max([d[k] for d in tr["nudged"][:4]],
                                         axis=0) for k in TT.QUANTITIES})

@@ -20,6 +20,5 @@ FLAGS = {
 def test_port_stays_in_jax_envelope(name):
     fields = dict(BASE, **FLAGS[name])
     tr = TT.trajectory(fields, STEPS, SEED, BATCH_SEED)
-    port = TT.port_run(fields, tr["params"], tr["batches"])
-    ex = TT.excess(TT.departures(port, tr["ref"]), tr)
+    ex = TT.excess(tr["ports"]["port"], tr)
     assert max(ex.values()) <= 1.0, (name, ex)

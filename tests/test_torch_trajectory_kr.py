@@ -11,6 +11,5 @@ from test_torch_trajectory import BASE, BATCH_SEED, SEED, STEPS
 def test_port_stays_in_jax_envelope():
     fields = dict(BASE, faithful_known_replacement=False)
     tr = TT.trajectory(fields, STEPS, SEED, BATCH_SEED)
-    port = TT.port_run(fields, tr["params"], tr["batches"])
-    ex = TT.excess(TT.departures(port, tr["ref"]), tr)
+    ex = TT.excess(tr["ports"]["port"], tr)
     assert max(ex.values()) <= 1.0, ex

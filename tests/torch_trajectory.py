@@ -2,11 +2,14 @@
 weights (bridged), the same batch stream, K steps
 of `make_train_step` in both packages, and JAX's own envelope around its
 trajectory, the largest departure of JAX from itself when its starting
-weights are nudged by one ulp (four nudges).
+weights are nudged by one ulp (four nudges).  The runs walk in lockstep
+and each step's departures are taken before the next step, so no step's
+parameters are kept: at the protocol's full width a step's parameters
+are ~0.55 GB a run.
 
 Used by tests/test_torch_trajectory*.py (tiny configuration, a few tens of
 steps), studies/trajectory_scan.py and studies/jax_cpu_protocol.py
-(`--run pair`: the protocol's width, more steps).
+(`--run pair`, `--run pairjax`: the protocol's width, more steps).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import copy
 import math
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -59,6 +62,26 @@ def synth_batches(n: int, b: int = 2, size: int = 64, seed: int = 0
     return out
 
 
+def trainer_batches(data, fine_size: int, batch_size: int, n: int,
+                    seed: int = 0) -> List[dict]:
+    """The first `n` batches the JAX package's trainer draws from a
+    protocol's data directory (as `_cli train` reads it: images under
+    img/, masks under mask/, the images as their own references; epoch
+    e's BatchIterator at seed + e), from epoch 1 on."""
+    from deepinpainting_tpu.data import InpaintDataset
+    from deepinpainting_tpu.data.iterator import BatchIterator
+    ds = InpaintDataset(f"{data}/img", f"{data}/mask", f"{data}/img",
+                        fine_size, seed=seed)
+    out, epoch = [], 1
+    while len(out) < n:
+        for b in BatchIterator(ds, batch_size, seed=seed + epoch):
+            out.append({k: np.asarray(v) for k, v in b.items()})
+            if len(out) == n:
+                break
+        epoch += 1
+    return out
+
+
 def nudge(params, i: int):
     """Every leaf moved by one ulp, up or down at random (seed i)."""
     rng = np.random.default_rng(1000 + i)
@@ -71,18 +94,26 @@ def nudge(params, i: int):
     return jax.tree_util.tree_map(one, params)
 
 
-def _vectors(trees: dict) -> Dict[str, np.ndarray]:
-    """{net: its parameters as one f64 vector, flat keys sorted}."""
-    out = {}
-    for net, flat in trees.items():
-        out[net] = np.concatenate([np.asarray(flat[k], np.float64).ravel()
-                                   for k in sorted(flat)])
-    return out
+def _thetas(trees: dict) -> Dict[str, dict]:
+    """{net: its flat parameter dict keyed as JAX's params}, running
+    statistics left out."""
+    return {net: {k.removeprefix("params/"): v for k, v in flat.items()
+                  if not k.startswith("batch_stats/")}
+            for net, flat in trees.items()}
 
 
-def jax_run(fields: dict, params, batches) -> dict:
-    """K steps of the JAX package's jitted train step: per-step losses
-    and per-step parameter vectors of each trained network."""
+def _distance(a: dict, b: dict) -> float:
+    """||a - b||_2 over every leaf of two flat dicts, summed in f64 leaf by
+    leaf (no vector of the whole network is formed)."""
+    return math.sqrt(sum(float(np.sum(np.square(
+        np.asarray(a[k], np.float64) - np.asarray(b[k], np.float64))))
+        for k in b))
+
+
+def jax_steps(fields: dict, params, batches) -> Iterator[dict]:
+    """The JAX package's jitted train step over `batches`, one step a
+    `next`: its losses, each trained network's parameters (flat dicts),
+    and after the first step G's first gradient ("grad_G", else None)."""
     jcfg, _ = configs(**fields)
     key = tuple(sorted(fields.items()))
     if key not in _JIT:
@@ -90,24 +121,26 @@ def jax_run(fields: dict, params, batches) -> dict:
     step = _JIT[key]
     state = JST.create_train_state(jcfg, params)
     rng = jax.random.PRNGKey(0)
-    losses, thetas, grad = [], [], None
-    for b in batches:
+    for i, b in enumerate(batches):
         state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()},
                         rng)
-        losses.append({k: float(m[k]) for k in LOSSES})
-        thetas.append(_vectors({n: flat_of(JST.params_of(
-            getattr(state, f"params_{n}"))) for n in TRAINED}))
-        if grad is None:    # Adam's first moment after one step: (1-b1) g
+        grad = None
+        if i == 0:          # Adam's first moment after one step: (1-b1) g
             grad = {k: np.asarray(v) / (1 - jcfg.beta1) for k, v in
                     flat_of(state.opt_G.inner_state[0].mu).items()}
-    return {"losses": losses, "thetas": thetas, "grad_G": grad}
+        yield {"losses": {k: float(m[k]) for k in LOSSES},
+               "thetas": _thetas({n: flat_of(JST.params_of(
+                   getattr(state, f"params_{n}"))) for n in TRAINED}),
+               "grad_G": grad}
 
 
-def port_run(fields: dict, params, batches,
-             adam_count: int = 0, beta1: Optional[float] = None) -> dict:
-    """The same K steps through the port's make_train_step from the same
-    weights (bridged).  `adam_count` starts every Adam at that step count
-    (zero moments) and `beta1` replaces the port's beta1: the controls."""
+def port_steps(fields: dict, params, batches, adam_count: int = 0,
+               beta1: Optional[float] = None) -> Iterator[dict]:
+    """The same steps through the port's make_train_step from the same
+    weights (bridged), one step a `next`, as jax_steps yields them (the
+    parameters are the live tensors' views: read them before the next
+    step).  `adam_count` starts every Adam at that step count (zero
+    moments) and `beta1` replaces the port's beta1: the controls."""
     _, tcfg = configs(**fields)
     if beta1 is not None:
         tcfg = tcfg.replace(beta1=beta1)
@@ -121,14 +154,10 @@ def port_run(fields: dict, params, batches,
             bridge_adam_state(getattr(state, f"opt_{n}"), net, adam_count,
                               zeros, zeros)
     step = TI.make_train_step(tcfg, "cpu")
-    losses, thetas, grad = [], [], None
-    for b in batches:
+    for i, b in enumerate(batches):
         _, m = step(state, b)
-        losses.append({k: float(m[k]) for k in LOSSES})
-        thetas.append(_vectors({
-            n: {k: v for k, v in flat_dict(getattr(state, n)).items()
-                if not k.startswith("batch_stats/")} for n in TRAINED}))
-        if grad is None:    # G's first gradient, keyed as JAX's
+        grad = None
+        if i == 0:          # G's first gradient, keyed as JAX's
             moments = copy.deepcopy(state.G)
             with torch.no_grad():
                 for p, q in zip(state.G.parameters(), moments.parameters()):
@@ -137,22 +166,49 @@ def port_run(fields: dict, params, batches,
             grad = {k.removeprefix("params/"): v
                     for k, v in flat_dict(moments).items()
                     if not k.startswith("batch_stats/")}
-    return {"losses": losses, "thetas": thetas, "grad_G": grad}
+        yield {"losses": {k: float(m[k]) for k in LOSSES},
+               "thetas": _thetas({n: flat_dict(getattr(state, n))
+                                  for n in TRAINED}),
+               "grad_G": grad}
 
 
-def departures(run: dict, ref: dict) -> dict:
-    """Per step: |loss - ref's| for each loss, and ||theta - ref's||_2 for
-    each trained network; and under "grad_G" the largest entry of G's
-    first gradient's departure."""
-    out = {k: [] for k in QUANTITIES}
-    for lo, lr, to, tr in zip(run["losses"], ref["losses"], run["thetas"],
-                              ref["thetas"]):
-        for k in LOSSES:
-            out[k].append(abs(lo[k] - lr[k]))
-        for n in TRAINED:
-            out[f"theta_{n}"].append(float(np.linalg.norm(to[n] - tr[n])))
-    out["grad_G"] = max(float(np.abs(run["grad_G"][k] - v).max())
-                        for k, v in ref["grad_G"].items())
+def departure(run: dict, ref: dict) -> dict:
+    """One step's departure of `run` from `ref` (steps as jax_steps yields
+    them): |loss - ref's| for each loss, ||theta - ref's||_2 for each
+    trained network, and at the first step the largest entry of G's
+    first gradient's departure under "grad_G"."""
+    out = {k: abs(run["losses"][k] - ref["losses"][k]) for k in LOSSES}
+    for n in TRAINED:
+        out[f"theta_{n}"] = _distance(run["thetas"][n], ref["thetas"][n])
+    if ref["grad_G"] is not None:
+        out["grad_G"] = max(float(np.abs(run["grad_G"][k] - v).max())
+                            for k, v in ref["grad_G"].items())
+    return out
+
+
+def walk(ref: Iterator[dict], runs: Dict[str, Iterator[dict]],
+         n_steps: int) -> dict:
+    """Every run stepped in lockstep with `ref`, each step's departures
+    taken before the next step: {"ref": {"losses"}, name: {"losses",
+    "departure": {quantity: per step}, and "grad_G"}}.  No step's
+    parameters outlive it, so the memory is that of the live states."""
+    out = {"ref": {"losses": []}}
+    out.update({name: {"losses": [], "departure": {k: [] for k in
+                                                   QUANTITIES}}
+                for name in runs})
+    for _ in range(n_steps):
+        r = next(ref)
+        out["ref"]["losses"].append(r["losses"])
+        for name, it in runs.items():
+            s = next(it)
+            out[name]["losses"].append(s["losses"])
+            for k, v in departure(s, r).items():
+                if k == "grad_G":
+                    out[name]["grad_G"] = v
+                else:
+                    out[name]["departure"][k].append(v)
+            del s
+        del r
     return out
 
 
@@ -198,26 +254,40 @@ def draw(jcfg, seed: int, jax_init: bool = False) -> dict:
 
 def trajectory(fields: dict, n_steps: int, seed: int = 0,
                batch_seed: int = 0, nudges: int = NUDGES,
-               jax_init: bool = False) -> dict:
-    """JAX's trajectory from draw(seed, jax_init) on synth_batches at
-    `batch_seed`, and its envelope over `nudges` one-ulp nudges (also
-    each nudge's own departures, under "nudged")."""
+               jax_init: bool = False, ports: Optional[dict] = None,
+               batches: Optional[List[dict]] = None) -> dict:
+    """JAX's trajectory from draw(seed, jax_init) on `batches` (by default
+    synth_batches at `batch_seed`), its envelope over `nudges` one-ulp
+    nudges (each nudge's own losses and departures under "nudged"), and
+    each port run of `ports` ({name: port_steps keyword arguments}, by
+    default one plain run "port") from the same weights under
+    "ports"[name]: its losses, its departures per step and G's first
+    gradient's.  All runs walk in lockstep (walk)."""
     jcfg, _ = configs(**fields)
     params = draw(jcfg, seed, jax_init)
-    batches = synth_batches(n_steps, jcfg.batch_size, jcfg.fine_size,
-                            batch_seed)
-    ref = jax_run(fields, params, batches)
-    envelope = {k: np.zeros(n_steps) for k in QUANTITIES}
-    each = []
+    if batches is None:
+        batches = synth_batches(n_steps, jcfg.batch_size, jcfg.fine_size,
+                                batch_seed)
+    ports = {"port": {}} if ports is None else ports
+    runs = {}
     for i in range(nudges):
         nudged = dict(params)
         for n in TRAINED:
             nudged[n] = nudge(params[n], i)
-        each.append(departures(jax_run(fields, nudged, batches), ref))
-        for k in envelope:
-            envelope[k] = np.maximum(envelope[k], each[-1][k])
-    return {"params": params, "batches": batches, "ref": ref,
-            "envelope": envelope, "nudged": each}
+        runs[f"nudge{i}"] = jax_steps(fields, nudged, batches)
+    for name, kw in ports.items():
+        runs[name] = port_steps(fields, params, batches, **kw)
+    w = walk(jax_steps(fields, params, batches), runs, n_steps)
+    each = [dict(w[f"nudge{i}"]["departure"], grad_G=w[f"nudge{i}"]["grad_G"],
+                 losses=w[f"nudge{i}"]["losses"]) for i in range(nudges)]
+    envelope = {k: np.max([d[k] for d in each], axis=0) if each
+                else np.zeros(n_steps) for k in QUANTITIES}
+    return {"params": params, "batches": batches, "ref": w["ref"],
+            "envelope": envelope, "nudged": each,
+            "ports": {name: dict(w[name]["departure"],
+                                 losses=w[name]["losses"],
+                                 grad_G=w[name]["grad_G"])
+                      for name in ports}}
 
 
 def limits(tr: dict, factor: float = FACTOR) -> dict:
