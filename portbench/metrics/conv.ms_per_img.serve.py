@@ -1,0 +1,9 @@
+"""Device milliseconds of the convolution class an image answered,
+from the trace."""
+
+
+def read(w):
+    if w.trace is None or w.kind != "serve" or not w.images:
+        return None
+    s = w.trace.seconds_of("convolution")
+    return s / w.images * 1e3 if s > 0 else None

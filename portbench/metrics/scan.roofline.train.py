@@ -1,0 +1,10 @@
+"""The scan kernel's share of its roofline in the train step: the least
+time of the traced launches on their own inputs (counts.scan_seconds of
+each step's batch, a launch) over the kernel's device time, in %."""
+
+
+def read(w):
+    if w.trace is None or w.kind != "train" or not w.scan_bound_s:
+        return None
+    s = w.trace.seconds_of("scan")
+    return w.scan_bound_s / s * 100 if s > 0 else None
