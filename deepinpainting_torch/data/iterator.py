@@ -191,12 +191,24 @@ def device_batches(iterable, device, depth: int = 2):
     waits on the copy's event before the step can read the batch, and each
     tensor is recorded on the consumer's stream, so the caching allocator
     does not hand its memory to the side stream while the step still reads
-    it.  On the CPU the arrays become tensors without a copy.
+    it.  On the CPU the arrays become tensors without a copy.  Each wait of
+    the consumer on the prefetch queue is the span dip.data.wait
+    (utils/profiling.py), closed before the batch is handed out.
     """
     import torch
+    from ..utils.profiling import span
     dev = torch.device(device)
+
+    def waited(items):
+        while True:
+            with span("dip.data.wait"):
+                item = next(items, None)
+            if item is None:
+                return
+            yield item
+
     if dev.type != "cuda":
-        for batch in prefetch(iterable, depth):
+        for batch in waited(prefetch(iterable, depth)):
             yield {k: torch.from_numpy(v) for k, v in batch.items()}
         return
 
@@ -210,7 +222,7 @@ def device_batches(iterable, device, depth: int = 2):
                 done.record(stream)
             yield out, done
 
-    for out, done in prefetch(uploaded(), depth):
+    for out, done in waited(prefetch(uploaded(), depth)):
         consumer = torch.cuda.current_stream(dev)
         consumer.wait_event(done)
         for t in out.values():

@@ -84,6 +84,7 @@ from ..ops.convs import (INIT_TYPES, NORMS, InstanceNorm, conv_modes,
                          frozen_running_stats, init_weight_)
 from ..parallel.collectives import (all_reduce_mean, as_grid, full_rows,
                                     own_rows, replicated, use_grid)
+from ..utils.profiling import span
 from .state import TrainState, create_train_state
 
 
@@ -433,17 +434,21 @@ def _global_metrics(group, metrics: Dict[str, torch.Tensor]
 
 
 def _apply_grads(opt: torch.optim.Optimizer, params, grads) -> None:
-    for p, g in zip(params, grads):
-        p.grad = g
-    opt.step()
+    with span("dip.step.optimiser"):
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
 
 
 def _batch_inputs(cfg: Config, batch, dev: torch.device):
     """A train batch on `dev`: (gt, ref) NCHW in [-1, 1], mask [B,H,W],
     feat_mask and flag."""
-    gt = normalize_image(_as_tensor(batch["image"], dev)).permute(0, 3, 1, 2)
-    ref = normalize_image(_as_tensor(batch["ref"], dev)).permute(0, 3, 1, 2)
-    mask, fmask, flag = _masks(cfg, _as_tensor(batch["mask"], dev))
+    with span("dip.step.inputs"):
+        gt = normalize_image(_as_tensor(batch["image"], dev)).permute(
+            0, 3, 1, 2)
+        ref = normalize_image(_as_tensor(batch["ref"], dev)).permute(
+            0, 3, 1, 2)
+        mask, fmask, flag = _masks(cfg, _as_tensor(batch["mask"], dev))
     return gt, ref, mask, fmask, flag
 
 
@@ -515,7 +520,7 @@ def make_train_step(cfg: Config, device: DeviceLike = None, group=None):
 
     def train_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
-        with conv_modes(cfg), use_grid(grid):
+        with span("dip.step"), conv_modes(cfg), use_grid(grid):
             return _train_step(state, batch, generator)
 
     def _train_step(state: TrainState, batch,
@@ -524,36 +529,39 @@ def make_train_step(cfg: Config, device: DeviceLike = None, group=None):
         for net in (G, P, D, F):
             net.train()
         gt, ref, mask, fmask, flag = _batch_inputs(cfg, batch, dev)
-        with torch.no_grad():
-            vgg_ref = vgg(ref)
-            vgg_gt = vgg(gt)
-
-        # One forward for the whole step: the D phase sees the detached
-        # fake_B, the G phase differentiates through this same graph.
-        fwd = two_stage_forward(G, P, gt, mask, vgg_ref.relu4_3, flag, impl,
-                                generator, dt)
-        fake_B_const = fwd.fake_B.detach()
-        with torch.no_grad():
-            # only relu3_3 of the fake image is consumed (netF's input)
-            fake_feat = vgg(fake_B_const, upto=3).relu3_3
+        with span("dip.step.forward"):
+            with torch.no_grad():
+                vgg_ref = vgg(ref)
+                vgg_gt = vgg(gt)
+            # One forward for the whole step: the D phase sees the detached
+            # fake_B, the G phase differentiates through this same graph.
+            fwd = two_stage_forward(G, P, gt, mask, vgg_ref.relu4_3, flag,
+                                    impl, generator, dt)
+            fake_B_const = fwd.fake_B.detach()
+            with torch.no_grad():
+                # only relu3_3 of the fake image is consumed (netF's input)
+                fake_feat = vgg(fake_B_const, upto=3).relu3_3
 
         # ---- D / F phase ----
-        loss_D_img, loss_F_feat = _d_losses(cfg, D, F, fake_B_const, gt,
-                                            fake_feat, vgg_gt.relu3_3)
-        params_D, params_F = list(D.parameters()), list(F.parameters())
-        # autograd.grad frees the D-phase graph, so the in-place optimiser
-        # steps below invalidate no tensor saved for a later backward.
-        grads = _mean_over(world, torch.autograd.grad(
-            0.5 * loss_D_img + 0.5 * loss_F_feat, params_D + params_F))
+        with span("dip.step.d_phase"):
+            loss_D_img, loss_F_feat = _d_losses(cfg, D, F, fake_B_const, gt,
+                                                fake_feat, vgg_gt.relu3_3)
+            params_D, params_F = list(D.parameters()), list(F.parameters())
+            # autograd.grad frees the D-phase graph, so the in-place
+            # optimiser steps below invalidate no tensor saved for a later
+            # backward.
+            grads = _mean_over(world, torch.autograd.grad(
+                0.5 * loss_D_img + 0.5 * loss_F_feat, params_D + params_F))
         _apply_grads(state.opt_D, params_D, grads[:len(params_D)])
         _apply_grads(state.opt_F, params_F, grads[len(params_D):])
 
         # ---- G / P phase, against the updated discriminators ----
-        loss_G, loss_G_GAN, loss_G_L1, cos = _g_losses(
-            cfg, D, F, fwd, gt, fake_feat, vgg_gt, fmask)
-        params_G, params_P = list(G.parameters()), list(P.parameters())
-        grads = _mean_over(world, torch.autograd.grad(
-            loss_G, params_G + params_P))
+        with span("dip.step.g_phase"):
+            loss_G, loss_G_GAN, loss_G_L1, cos = _g_losses(
+                cfg, D, F, fwd, gt, fake_feat, vgg_gt, fmask)
+            params_G, params_P = list(G.parameters()), list(P.parameters())
+            grads = _mean_over(world, torch.autograd.grad(
+                loss_G, params_G + params_P))
         _apply_grads(state.opt_G, params_G, grads[:len(params_G)])
         _apply_grads(state.opt_P, params_P, grads[len(params_G):])
 
@@ -618,7 +626,7 @@ def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
 
     def train_step(state: TrainState, batch,
                    generator: Optional[torch.Generator] = None):
-        with conv_modes(cfg), use_grid(grid):
+        with span("dip.step"), conv_modes(cfg), use_grid(grid):
             return _train_step(state, batch, generator)
 
     def _train_step(state: TrainState, batch,
@@ -638,47 +646,50 @@ def _make_accum_train_step(cfg: Config, dev: torch.device, impl: str,
         # ---- D / F phase, against the discriminators before the step ----
         params_D, params_F = list(D.parameters()), list(F.parameters())
         acc, loss_D_img, loss_F_feat = None, 0.0, 0.0
-        for gt, ref, mask, _, flag in micro:
-            with torch.no_grad():
-                real_feat = vgg(gt, upto=3).relu3_3
-                ref_feat = vgg(ref).relu4_3
-                draws.append(gen.get_state())
-                fwd = two_stage_forward(G, P, gt, mask, ref_feat, flag, impl,
-                                        generator, dt)
-                fake_feat = vgg(fwd.fake_B, upto=3).relu3_3
-            l_D, l_F = _d_losses(cfg, D, F, fwd.fake_B, gt, fake_feat,
-                                 real_feat)
-            acc = _accumulate(acc, torch.autograd.grad(
-                0.5 * l_D + 0.5 * l_F, params_D + params_F))
-            loss_D_img = loss_D_img + l_D.detach()
-            loss_F_feat = loss_F_feat + l_F.detach()
-        for g in acc:
-            g.div_(k)
-        acc = _mean_over(world, acc)
+        with span("dip.step.d_phase"):
+            for gt, ref, mask, _, flag in micro:
+                with span("dip.step.forward"), torch.no_grad():
+                    real_feat = vgg(gt, upto=3).relu3_3
+                    ref_feat = vgg(ref).relu4_3
+                    draws.append(gen.get_state())
+                    fwd = two_stage_forward(G, P, gt, mask, ref_feat, flag,
+                                            impl, generator, dt)
+                    fake_feat = vgg(fwd.fake_B, upto=3).relu3_3
+                l_D, l_F = _d_losses(cfg, D, F, fwd.fake_B, gt, fake_feat,
+                                     real_feat)
+                acc = _accumulate(acc, torch.autograd.grad(
+                    0.5 * l_D + 0.5 * l_F, params_D + params_F))
+                loss_D_img = loss_D_img + l_D.detach()
+                loss_F_feat = loss_F_feat + l_F.detach()
+            for g in acc:
+                g.div_(k)
+            acc = _mean_over(world, acc)
         _apply_grads(state.opt_D, params_D, acc[:len(params_D)])
         _apply_grads(state.opt_F, params_F, acc[len(params_D):])
 
         # ---- G / P phase, against the updated discriminators ----
         params_G, params_P = list(G.parameters()), list(P.parameters())
         acc, sums = None, [0.0, 0.0, 0.0]
-        for (gt, ref, mask, fmask, flag), draw in zip(micro, draws):
-            with torch.no_grad():
-                vgg_gt = vgg(gt)
-                ref_feat = vgg(ref).relu4_3
-            gen.set_state(draw)
-            with frozen_running_stats(G, P):
-                fwd = two_stage_forward(G, P, gt, mask, ref_feat, flag, impl,
-                                        generator, dt)
-            with torch.no_grad():
-                fake_feat = vgg(fwd.fake_B.detach(), upto=3).relu3_3
-            loss_G, *parts = _g_losses(cfg, D, F, fwd, gt, fake_feat, vgg_gt,
-                                       fmask)
-            acc = _accumulate(acc, torch.autograd.grad(
-                loss_G, params_G + params_P))
-            sums = [s + v.detach() for s, v in zip(sums, parts)]
-        for g in acc:
-            g.div_(k)
-        acc = _mean_over(world, acc)
+        with span("dip.step.g_phase"):
+            for (gt, ref, mask, fmask, flag), draw in zip(micro, draws):
+                with span("dip.step.forward"):
+                    with torch.no_grad():
+                        vgg_gt = vgg(gt)
+                        ref_feat = vgg(ref).relu4_3
+                    gen.set_state(draw)
+                    with frozen_running_stats(G, P):
+                        fwd = two_stage_forward(G, P, gt, mask, ref_feat,
+                                                flag, impl, generator, dt)
+                    with torch.no_grad():
+                        fake_feat = vgg(fwd.fake_B.detach(), upto=3).relu3_3
+                loss_G, *parts = _g_losses(cfg, D, F, fwd, gt, fake_feat,
+                                           vgg_gt, fmask)
+                acc = _accumulate(acc, torch.autograd.grad(
+                    loss_G, params_G + params_P))
+                sums = [s + v.detach() for s, v in zip(sums, parts)]
+            for g in acc:
+                g.div_(k)
+            acc = _mean_over(world, acc)
         _apply_grads(state.opt_G, params_G, acc[:len(params_G)])
         _apply_grads(state.opt_P, params_P, acc[len(params_G):])
 

@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.convs import current_modes, frozen_running_stats, use_modes
 from ..parallel.collectives import (current_group, current_spatial,
                                     use_group, use_spatial)
+from ..utils.profiling import span
 
 
 def mark_levels(outermost: nn.Module, remat: bool, depth: int) -> None:
@@ -68,8 +69,8 @@ def checkpoint_level(level: nn.Module, fn: Callable, x: torch.Tensor,
         if generator is not None:
             generator.set_state(entry)
         try:
-            with frozen_running_stats(level), use_modes(modes), \
-                    use_group(group), use_spatial(spatial):
+            with span("dip.remat.recompute"), frozen_running_stats(level), \
+                    use_modes(modes), use_group(group), use_spatial(spatial):
                 return fn(x)
         finally:
             if generator is not None:

@@ -75,6 +75,7 @@ import torch.nn.functional as F
 from ..parallel.collectives import (all_reduce_sum, batch_group,
                                     current_spatial, full_rows,
                                     halo_exchange, own_rows, replicated)
+from ..utils.profiling import span
 from . import quant
 
 INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
@@ -388,14 +389,22 @@ def _slab_conv_transpose2d(x, w, bias, stride, padding, sp):
     return y.narrow(2, above * s, x.shape[2] * s)
 
 
+def _weight_as(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A conv's weight in its input's dtype: the f32 parameter itself, or
+    its per-call cast (the bf16 boundary)."""
+    if w.dtype == dtype:
+        return w
+    with span("dip.bf16.weight_cast"):
+        return w.to(dtype)
+
+
 class Conv2d(nn.Conv2d):
     """nn.Conv2d that computes in its input's dtype (see the module
     docstring) under the conv modes in force; on an f32 input with no mode
     it is nn.Conv2d unchanged."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight if x.dtype == self.weight.dtype \
-            else self.weight.to(x.dtype)
+        w = _weight_as(self.weight, x.dtype)
         sp = current_spatial()
         if sp is not None:
             return _slab_conv2d(x, w, self.bias, self.stride, self.padding,
@@ -415,8 +424,7 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     dtype under the conv modes in force, as Conv2d does."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight if x.dtype == self.weight.dtype \
-            else self.weight.to(x.dtype)
+        w = _weight_as(self.weight, x.dtype)
         sp = current_spatial()
         if sp is not None:
             return _slab_conv_transpose2d(x, w, self.bias, self.stride,

@@ -107,28 +107,19 @@ def test_metrics_logger_csv_epochs_and_plot(tmp_path, capsys):
 
 
 def test_profiling_and_parameter_counts(tmp_path, capsys):
-    import time
-
     from deepinpainting_tpu.utils.params import count_params as jcount
     from deepinpainting_torch.engine import inpaint as TI
     from deepinpainting_torch.utils.params import (count_params,
                                                    print_network,
                                                    summarize_state)
-    from deepinpainting_torch.utils.profiling import StepTimer, trace
+    from deepinpainting_torch.utils.profiling import trace
     from torch_port_helpers import configs, jax_params
 
     with trace("") as prof:                   # falsy: no profiler
         assert prof is None
-    timer = StepTimer()
-    for _ in range(3):
-        timer.start()
-        with trace(str(tmp_path / "t")):
-            torch.ones(4).sum()
-        time.sleep(0.001)
-        assert timer.stop(torch.ones(1)) >= 0.001
+    with trace(str(tmp_path / "t")):
+        torch.ones(4).sum()
     assert (tmp_path / "t" / "trace.json").exists()
-    assert timer.summary()["steps"] == 2      # the first is skipped
-    assert timer.summary(skip_first=0)["steps"] == 3
 
     jcfg, tcfg = configs()
     state = TI.create_state(tcfg, torch.Generator().manual_seed(0), "cpu")
