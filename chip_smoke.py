@@ -16,11 +16,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      more samples than SMs);
   3. the serving path: full-width 256 px serving (Config() defaults,
      weights from a seed) through InferenceSession, single and coalesced
-     requests, with the kernels' launch counts read around it;
+     requests, with the kernels' launch counts read around it (the
+     hand-written conv's against tests/torch_conv_shapes.py's rule at each
+     call's batch);
   4. the whole forward with the kernel against the plain scan, and the card
      against the CPU at a small config;
   5. the training path: three full-width train steps at batch 8 through
-     create_state / make_train_step, launch counts read around them; the
+     create_state / make_train_step, launch counts read around them (the
+     hand-written conv's against the rule: 55 a step); the
      trained generators then serve a request; a few more steps for the
      timing and a profile; one step with the kernels against the same step
      with the plain versions;
@@ -40,7 +43,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      kernels at N=4096: (a) bf16 with remat at depth 1 (the JAX package's
      512 px training configuration), (b) f32 without remat, (c) f32 with
      grad_accum=2, each three (two) steps with ms a step, peak memory and
-     launches; (d) (a)'s first step with the kernels against the plain
+     launches (the hand-written conv's against the rule: (a) 12 a step,
+     (b) 42, (c) 132); (d) (a)'s first step with the kernels against the plain
      versions at a small hole, and the recompute's kbar against the
      forward's bit for bit; (e) bf16 serving at 256 and 512 px; (f) both
      kernels timed at N=4096, B=1 and B=8, center hole;
@@ -123,7 +127,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      create_state state, saved with CheckpointManager and restored by
      InferenceSession(cfg, which_epoch) with Config(vgg_weights=npz): (a)
      every imported and restored tensor bit for bit, P, D and F forwards
-     against the stand-ins' within 1e-5, relu4_3 against torchvision's
+     (through the hand-written conv where it routes) against the
+     stand-ins' within 1e-5 times max(1, max |y|), relu4_3 against
+     torchvision's
      recomputation; (b) fake_B kernel vs plain at phase 4's small hole,
      b1 requests and their launches, one train step at B=8 kernels vs
      plain (losses), launches 1 / 1; conversion, import, restore and b1
@@ -152,9 +158,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (artifacts/jax_cpu_f32/fullwidth_s0/pair.json), steps 2-8 printed
      beside 8x JAX's one-ulp envelope, and (b) netP's first gradient
      against its f64 recomputation.  `python3 chip_smoke.py --phase 15`
-     runs the build and this phase alone.
+     runs the build and this phase alone;
+ 16. the hand-written f32 convolution (csrc/conv2d.cu) at every shape
+     ops/convs.py routes to it on the 256 px f32 and 512 px bf16 train
+     steps and 256 px serving at B = 1 and 8, full width: a forward shape
+     through conv_cuda.conv2d_f32_cuda, an input-gradient shape through
+     HandConvTranspose2d's backward, each against a float64 conv2d within
+     twice F.conv2d's own f32 error (TF32 off), one launch a call, a
+     repeat bit for bit; its time a launch beside cuDNN's and the FLOP
+     bound, summed over each path's step or call.  `python3 chip_smoke.py
+     --phase 16` runs the build and this phase alone.
 Three lines end the output, each on its own: a JSON object with a `kernels`
-list, the card's name and power limit as nvidia-smi gives them, and last
+list (scan_stream, kbar_build, conv2d_f32), the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -279,6 +294,18 @@ def kbar_bound(bsz: int, n: int, ind_bytes: int) -> dict:
     t_ops = ops / F32_FLOPS_PER_S * 1e3
     return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def conv_shapes():
+    """tests/torch_conv_shapes.py: the convolutions ops/convs.py routes to
+    the hand-written f32 kernel (csrc/conv2d.cu), enumerated from the
+    networks on the meta device, and the launches a train step or a
+    serving call makes where conv_cuda.takes the shape (imports no JAX)."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.append(tests)
+    import torch_conv_shapes
+    return torch_conv_shapes
 
 
 def profile_calls(label: str, calls, card: str) -> dict:
@@ -645,6 +672,7 @@ def precision_and_memory(dev, card: str, base, models256, phase6: dict,
     from deepinpainting_torch.engine import inpaint as TI
     from deepinpainting_torch.ops import attention as TA
     from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.ops import conv_cuda as CC
     from deepinpainting_torch.serve.app import InferenceSession
 
     s, b = base.fine_size, base.batch_size
@@ -668,16 +696,19 @@ def precision_and_memory(dev, card: str, base, models256, phase6: dict,
         return {"scan_stream": TAC.launches,
                 "kbar_build": TAC.kbar_launches}
 
-    def train(label, cfg, n_steps):
+    def train(label, cfg, n_steps, conv_per_step=None):
         """n_steps steps from fresh weights (seed 0): ms a step (host clock
         ending in synchronize(), median after the first), peak allocated
-        memory, launches (checked against step_launches)."""
+        memory, launches (checked against step_launches), the hand-written
+        conv's launches (checked against conv_per_step a step, where
+        given)."""
         state = TI.create_state(cfg, torch.Generator().manual_seed(cfg.seed),
                                 dev)
         step = TI.make_train_step(cfg, dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         TAC.launches = TAC.kbar_launches = 0   # counts: this path only
+        CC.launches = 0
         ms = []
         for i in range(n_steps):
             t0 = time.perf_counter()
@@ -688,7 +719,7 @@ def precision_and_memory(dev, card: str, base, models256, phase6: dict,
             check(all(np.isfinite(v) for v in values.values())
                   and all(v.dtype == torch.float32 for v in metrics.values()),
                   f"{label} step {i + 1}: metrics must be finite f32")
-        launches = counts()
+        launches, conv = counts(), CC.launches
         peak = torch.cuda.max_memory_allocated()
         want = {k: v * n_steps for k, v in step_launches(cfg).items()}
         steady = statistics.median(ms[1:]) if n_steps > 1 else ms[0]
@@ -697,15 +728,21 @@ def precision_and_memory(dev, card: str, base, models256, phase6: dict,
             + " / ".join(f"{x:.1f}" for x in ms) + f" ms), "
             f"{b / steady * 1e3:.2f} img/s, peak allocated "
             f"{peak / 2 ** 30:.2f} GiB ({peak} B), launches {launches} "
-            f"(expected {want}), last metrics {values}  [{card}]")
+            f"(expected {want}), hand-written conv {conv}"
+            + (f" (expected {conv_per_step * n_steps})" if conv_per_step
+               else "") + f", last metrics {values}  [{card}]")
         check(launches == want, f"{label}: launches {launches} != {want}")
+        check(conv_per_step is None or conv == conv_per_step * n_steps,
+              f"{label}: hand-written conv launches {conv}")
         return state, step, {"ms": steady, "peak": peak,
-                             "launches": launches}
+                             "launches": launches, "conv": conv}
 
     paths, results = {}, {}
     # ---- (a) the 512 px training configuration: bf16, remat depth 1 ----
     cfg_a = base.replace(dtype="bfloat16", remat=True, remat_depth=1)
-    state, step, results["a"] = train("(a) bf16 remat depth 1", cfg_a, 3)
+    state, step, results["a"] = train(
+        "(a) bf16 remat depth 1", cfg_a, 3,
+        conv_shapes().hand_calls_per_step(s, b, "DF"))
     paths["train512_bf16_remat"] = results["a"]["launches"]
     # the recompute's kbar against the forward's, outside the counts
     kbars, core = [], TA.attention_core_batched
@@ -733,7 +770,9 @@ def precision_and_memory(dev, card: str, base, models256, phase6: dict,
 
     # ---- (b) the f32 baseline, no remat ----
     cfg_b = base.replace(dtype="float32", remat=False)
-    state, step, results["b"] = train("(b) f32, no remat", cfg_b, 3)
+    state, step, results["b"] = train(
+        "(b) f32, no remat", cfg_b, 3,
+        conv_shapes().hand_calls_per_step(s, b, "GPDF"))
     paths["train512_f32"] = results["b"]["launches"]
     profile_calls(f"train steps at {s} px, B={b}, f32",
                   [lambda: step(state, batches[1])], card)
@@ -742,7 +781,13 @@ def precision_and_memory(dev, card: str, base, models256, phase6: dict,
 
     # ---- (c) f32 with grad_accum=2 ----
     cfg_c = base.replace(dtype="float32", grad_accum=2)
-    state, step, results["c"] = train("(c) f32, grad_accum 2", cfg_c, 2)
+    # each microbatch: a step's calls at its batch, and the D phase's
+    # U-Net forwards without a graph
+    half = conv_shapes()
+    state, step, results["c"] = train(
+        "(c) f32, grad_accum 2", cfg_c, 2,
+        2 * (half.hand_calls_per_step(s, b // 2, "GPDF")
+             + half.hand_calls_per_forward(s, b // 2)))
     paths["train512_accum2"] = results["c"]["launches"]
     del state, step
     torch.cuda.empty_cache()
@@ -883,8 +928,10 @@ def precision_and_memory(dev, card: str, base, models256, phase6: dict,
                 + f", library call: none  [{card}]")
         del feat, refr, flag, pn, ind, vmax, known, args, kargs, ka, kb_
     torch.cuda.empty_cache()
+    conv = {f"train512_{k}": results[r]["conv"] for r, k in
+            (("a", "bf16_remat"), ("b", "f32"), ("c", "accum2"))}
     return {"paths": paths, "timings": timings, "train": results,
-            "serving": serving}
+            "serving": serving, "conv_paths": conv}
 
 
 @contextlib.contextmanager
@@ -3440,7 +3487,8 @@ def spatial_partitioning(dev, card: str, p9_cfg, epoch: int, small_req,
 # slices); G + P + VGG is Config()'s 139,747,014 (PERF.md §4).
 REFERENCE_PARAMS = {"G": 77_692_291, "P": 54_419_459, "D": 2_766_529,
                     "F": 10_487_296, "vgg": 7_635_264}
-FWD_TOL = 1e-5         # phase 13: stand-in forwards vs the imported port nets
+FWD_TOL = 1e-5         # phase 13: stand-in forwards vs the imported port
+                       # nets, times max(1, the stand-in's max |y|)
 # torchvision vgg16 `features`: (index, in, out) of each conv; the first ten
 # feed the four slices, conv5 (24, 26, 28) is what a real file also holds
 VGG16_CONVS = ((0, 3, 64), (2, 64, 64), (5, 64, 128), (7, 128, 128),
@@ -3655,7 +3703,10 @@ def reference_checkpoints(dev, card: str, base, small, small_batch,
     restored by InferenceSession(cfg, which_epoch).  Checks: (a) every
     imported and restored tensor equals the stand-ins' bit for bit, the
     runnable stand-ins' forwards (P, D, F) agree with the port's within
-    FWD_TOL, the restored VGG's relu4_3 with torchvision's recomputation;
+    FWD_TOL times max(1, the stand-in's max |y|) (the port's own f32
+    kernel, ops/conv_cuda.py, sums its kernel-4 convs in another order
+    than cuDNN), the restored VGG's relu4_3 with torchvision's
+    recomputation;
     (b) fake_B at the `small` hole with the scan kernel against the plain
     versions (E2E_TOL), one train step at base.batch_size from the
     imported nets with the kernels against the plain versions (STEP_TOL,
@@ -3666,6 +3717,7 @@ def reference_checkpoints(dev, card: str, base, small, small_batch,
     from deepinpainting_torch.engine import inpaint as TI
     from deepinpainting_torch.engine.checkpoint import CheckpointManager
     from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.ops import conv_cuda as CC
     from deepinpainting_torch.serve.app import InferenceSession
 
     t_phase = time.perf_counter()
@@ -3761,6 +3813,7 @@ def reference_checkpoints(dev, card: str, base, small, small_batch,
     x = draw(1, 3, s, s)
     feat = draw(1, nets["F"].model[0].in_channels, s // 8, s // 8).abs()
     fwd = {}
+    launched = CC.launches
     with torch.no_grad():
         for n, port, inp in (("P", P, x), ("D", state.D.eval(), x),
                              ("F", state.F.eval(), feat)):
@@ -3772,12 +3825,18 @@ def reference_checkpoints(dev, card: str, base, small, small_batch,
         got = vgg(x).relu4_3
         fwd["vgg relu4_3"] = ((got - want).abs().max().item(),
                               want.abs().max().item())
+    launched = CC.launches - launched
     log("phase 13 (a) forwards, stand-in against the imported port net "
         "(max |d|, the stand-in's max |y|): " + ", ".join(
             f"{n} {d:.3e} ({m:.3e})" for n, (d, m) in fwd.items())
-        + f" (limit {FWD_TOL})  [{card}]")
-    check(all(d <= FWD_TOL and np.isfinite(d) for d, _ in fwd.values()),
-          f"stand-in forwards against the port's beyond {FWD_TOL}")
+        + f" (limit {FWD_TOL} x max(1, max |y|)); the port's forwards "
+        f"launched the hand-written conv {launched} times  [{card}]")
+    check(all(d <= FWD_TOL * max(1.0, m) and np.isfinite(d)
+              for d, m in fwd.values()),
+          f"stand-in forwards against the port's beyond {FWD_TOL} x "
+          f"max(1, max |y|)")
+    check(launched > 0, "the port's forwards must take the hand-written "
+          "conv")
 
     # -- (b) serving: the kernel against the plain scan, then requests --
     img = rng.integers(0, 256, (1, s, s, 3), dtype=np.uint8)
@@ -4349,10 +4408,139 @@ def fullwidth_steps(device: str, card: str) -> dict:
         f"JAX's envelope; {time.perf_counter() - t_phase:.1f} s  [{card}]")
     return {"fullwidth_steps": launches}
 
+# ---- phase 16: the hand-written f32 convolution (csrc/conv2d.cu) ----------
+
+CONV_REPS = 3          # phase 16: medians of 3 timings of 20 launches
+CONV_PATHS = {         # path: (px, batch, nets, kinds, calls a step)
+    "train256_f32": (256, 8, "GPDF", ("fwd", "dgrad"), True),
+    "train512_bf16": (512, 8, "DF", ("fwd",), True),
+    "serving_b8": (256, 8, "GP", ("fwd",), False),
+    "serving_b1": (256, 1, "GP", ("fwd",), False)}
+
+
+def conv_kernel(device: str, card: str) -> dict:
+    """Phase 16: the hand-written f32 convolution at every shape that
+    ops/convs.py routes to it on the benchmark's paths at full width
+    (CONV_PATHS; tests/torch_conv_shapes.py enumerates them from the
+    networks): the 256 px f32 train step (each kernel-4 Conv2d forward and
+    each ConvTranspose2d input gradient), the 512 px bf16 step (netD's and
+    netF's f32 forwards) and 256 px serving at B = 1 and 8.  A forward
+    shape runs conv_cuda.conv2d_f32_cuda; an input-gradient shape runs
+    HandConvTranspose2d's backward.  Each is held to a float64 conv2d on
+    the card within twice F.conv2d's own f32 error on the same operands
+    (TF32 off, so a TF32 or other reduced operand fails), launches the
+    kernel once a call, and repeats bit for bit.  Then, TF32 off, the
+    kernel's time a launch (20 back to back), cuDNN's for the call it
+    replaces (F.conv2d; aten's transposed-conv input gradient) and the
+    FLOP bound (2MNK at F32_FLOPS_PER_S); summed over a step (a call) of
+    each path, each shape times its calls, where conv_cuda.takes it.
+    Returns the sums and the largest errors."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+    from deepinpainting_torch.ops import conv_cuda as CC
+    from deepinpainting_torch.ops.convs import HandConvTranspose2d
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    tcs = conv_shapes()
+    dev = torch.device(device)
+    calls = {}                    # (kind, geometry) -> {path: calls}
+    for path, (px, b, nets, kinds, per_step) in CONV_PATHS.items():
+        for name, kind, geo in tcs.routed_calls(px, b, nets):
+            if kind in kinds:
+                n = tcs.STEP_CALLS[name[0]] if per_step else 1
+                at = calls.setdefault((kind, geo), {})
+                at[path] = at.get(path, 0) + n
+    sums = {path: {"launches": 0, "ms": 0.0, "library_ms": 0.0,
+                   "bound_ms": 0.0} for path in CONV_PATHS}
+    gen = torch.Generator(device=dev).manual_seed(16)
+    worst, worst_ratio = 0.0, 0.0
+    for (kind, geo), at in calls.items():
+        b, c, h, w, n, k, s, p, d = geo
+        m_, n_, k_ = tcs.gemm(geo)
+        x = torch.randn(b, c, h, w, generator=gen, device=dev)
+        wt = torch.randn(n, c, k, k, generator=gen, device=dev) / math.sqrt(k_)
+        bias = (torch.randn(n, generator=gen, device=dev) if kind == "fwd"
+                else None)
+        direct = lambda: CC.conv2d_f32_cuda(x, wt, bias, s, p, d)
+        if kind == "fwd":
+            run, lib = direct, lambda: F.conv2d(x, wt, bias, s, p, d)
+        else:
+            # x is the output gradient of the transposed conv whose weight
+            # is wt ([n, c, k, k]: n in, c out) and whose input xt is
+            # [b, n, Ho, Wo]; its input gradient is conv2d(x, wt)
+            xt = torch.zeros(b, n, CC.out_size(h, k, s, p, d),
+                             CC.out_size(w, k, s, p, d), device=dev,
+                             requires_grad=True)
+
+            def run():
+                y = HandConvTranspose2d.apply(xt, wt, None, s, p)
+                return torch.autograd.grad(y, xt, x)[0]
+
+            lib = lambda: torch.ops.aten.convolution_backward(
+                x, xt, wt, None, [s, s], [p, p], [1, 1], True, [0, 0], 1,
+                [True, False, False])[0]
+        want = F.conv2d(x.double(), wt.double(),
+                        None if bias is None else bias.double(), s, p, d)
+        before = CC.launches
+        got, again = run(), run()
+        launched = CC.launches - before
+        cudnn = F.conv2d(x, wt, bias, s, p, d)
+        torch.cuda.synchronize()
+        err = (got.double() - want).abs().max().item()
+        cudnn_err = (cudnn.double() - want).abs().max().item()
+        same = torch.equal(got, again)
+        worst = max(worst, err)
+        worst_ratio = max(worst_ratio, err / max(cudnn_err, 1e-30))
+        ms = cuda_ms_back_to_back(direct, reps=CONV_REPS)
+        lib_ms = cuda_ms_back_to_back(lib, reps=CONV_REPS)
+        bound = 2 * m_ * n_ * k_ / F32_FLOPS_PER_S * 1e3
+        taken = CC.takes(m_, n_, k_, s, d)
+        log(f"phase 16 {kind} {'x'.join(map(str, geo))} (B C H W N k s p "
+            f"d), GEMM {m_}x{n_}x{k_}, {'taken' if taken else 'cuDNN kept'}"
+            f", calls {at}: max|d| to float64 {err:.3e} (F.conv2d's "
+            f"{cudnn_err:.3e}, limit 2x), launches {launched}, repeat bit "
+            f"for bit {same}; kernel {ms:.4f} ms a launch back to back "
+            f"({bound / ms:.1%} of its bound {bound:.4f} ms), cuDNN "
+            f"{lib_ms:.4f} ms ({bound / lib_ms:.1%})")
+        check(got.shape == want.shape and torch.isfinite(got).all().item()
+              and err <= 2 * cudnn_err,
+              f"conv {kind} {geo}: {err:.3e} to float64 against F.conv2d's "
+              f"{cudnn_err:.3e}")
+        check(launched == 2, f"conv {kind} {geo}: {launched} launches for 2")
+        check(same, f"conv {kind} {geo}: a repeat must be bit for bit")
+        if taken:
+            for path, n_calls in at.items():
+                t = sums[path]
+                t["launches"] += n_calls
+                t["ms"] += n_calls * ms
+                t["library_ms"] += n_calls * lib_ms
+                t["bound_ms"] += n_calls * bound
+        del x, wt, bias, want, got, again, cudnn
+    for path, t in sums.items():
+        log(f"phase 16 {path}: {t['launches']} launches a "
+            f"{'step' if CONV_PATHS[path][4] else 'call'}, kernel "
+            f"{t['ms']:.3f} ms, cuDNN {t['library_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.3f} ms ({t['bound_ms'] / t['ms']:.1%} of the "
+            f"kernel's time)  [{card}]")
+    want = tcs.hand_calls_per_step(256, 8, "GPDF")
+    check(sums["train256_f32"]["launches"] == want,
+          f"phase 16: {sums['train256_f32']['launches']} routed calls a "
+          f"256 px step against the rule's {want}")
+    torch.cuda.empty_cache()
+    log(f"phase 16: {len(calls)} shapes, largest error to float64 "
+        f"{worst:.3e}, at most {worst_ratio:.3f} of F.conv2d's; "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
+    return {"paths": sums, "max_abs_err": worst,
+            "max_err_over_cudnn": worst_ratio}
+
 
 def phase_only(run) -> int:
-    """`python3 chip_smoke.py --phase 14` (or 15): the build and that phase
-    alone, for working on it; prints no result line."""
+    """`python3 chip_smoke.py --phase 14` (or 15, 16): the build and that
+    phase alone, for working on it; prints no result line."""
     import torch
     if not torch.cuda.is_available():
         print("[chip_smoke] FAIL: torch.cuda.is_available() is False",
@@ -4379,11 +4567,13 @@ def main() -> int:
     from deepinpainting_torch.engine.checkpoint import CheckpointManager
     from deepinpainting_torch.ops import attention as TA
     from deepinpainting_torch.ops import attention_cuda as TAC
+    from deepinpainting_torch.ops import conv_cuda as CC
     from deepinpainting_torch.serve.app import InferenceSession
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
+    tcs = conv_shapes()
     dev = torch.device("cuda")
     card = card_line()
     log(f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
@@ -4641,7 +4831,15 @@ def main() -> int:
     concurrent = [(image(), center() if i % 2 else strokes(), image())
                   for i in range(8)]
 
+    # the batch of every serving call, for the hand-written conv's count
+    sizes, infers = [], {}
+    for sess in (single, batched):
+        def sized(G, P, vgg, image, *rest, inner=sess._infer):
+            sizes.append(len(image))
+            return inner(G, P, vgg, image, *rest)
+        infers[sess], sess._infer = sess._infer, sized
     TAC.launches = TAC.kbar_launches = 0  # counts: the serving path only
+    CC.launches = 0
     t0 = time.perf_counter()
     outs = [single.run(*r) for r in requests]
     results = [None] * len(concurrent)
@@ -4658,11 +4856,18 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {"scan_stream": TAC.launches,
                 "kbar_build": TAC.kbar_launches}
+    conv_paths = {"serving": CC.launches}
+    for sess, inner in infers.items():
+        sess._infer = inner
+    conv_want = sum(tcs.hand_calls_per_forward(s, b) for b in sizes)
     g_forwards = single.calls + batched.calls
     log(f"phase 3 served {len(requests)} single + {len(concurrent)} "
         f"concurrent requests in {time.perf_counter() - t0:.2f} s: "
-        f"{g_forwards} netG forwards ({batched.calls} coalesced calls), "
-        f"launches {launches}")
+        f"{g_forwards} netG forwards ({batched.calls} coalesced calls, "
+        f"batches {sizes}), launches {launches}, hand-written conv "
+        f"{conv_paths['serving']} (the rule's {conv_want}: "
+        f"{tcs.hand_calls_per_forward(s, 1)} a call at B=1, "
+        f"{tcs.hand_calls_per_forward(s, 8)} at B=8)")
     check(not any(t.is_alive() for t in threads), "a request hung")
     for out in outs + results:
         check(out is not None and out.dtype == np.uint8
@@ -4671,6 +4876,9 @@ def main() -> int:
     check(launches["scan_stream"] == g_forwards > 0,
           "scan kernel launches must equal netG forwards")
     check(launches["kbar_build"] == 0, "serving must build no kbar")
+    check(len(sizes) == g_forwards
+          and conv_paths["serving"] == conv_want > 0,
+          "serving: hand-written conv launches against the rule")
 
     # ---- phase 4: whole forward, kernel vs plain; card vs CPU -------------
     infer_k = TI.make_inference_fn(cfg.replace(attention_impl="cuda"), dev)
@@ -4750,6 +4958,7 @@ def main() -> int:
     batches = [train_batch(100 + i) for i in range(TRAIN_STEPS)]
     torch.cuda.reset_peak_memory_stats()
     TAC.launches = TAC.kbar_launches = 0  # counts: the training path only
+    CC.launches = 0
     step_ms = []
     for i, batch in enumerate(batches):
         t0 = time.perf_counter()
@@ -4763,13 +4972,18 @@ def main() -> int:
               f"step {i + 1}: every metric must be finite")
     train_launches = {"scan_stream": TAC.launches,
                       "kbar_build": TAC.kbar_launches}
+    conv_paths["training"] = CC.launches
+    conv_want = TRAIN_STEPS * tcs.hand_calls_per_step(s, TRAIN_BATCH, "GPDF")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"phase 5 trained {TRAIN_STEPS} steps at B={TRAIN_BATCH}: launches "
-        f"{train_launches}, state.step={state.step}")
+        f"{train_launches}, hand-written conv {conv_paths['training']} (the "
+        f"rule's {conv_want}), state.step={state.step}")
     check(state.step == TRAIN_STEPS, "state.step must count the steps")
     check(train_launches == {"scan_stream": TRAIN_STEPS,
                              "kbar_build": TRAIN_STEPS},
           "each kernel must launch exactly once a train step")
+    check(conv_paths["training"] == conv_want,
+          "train step: hand-written conv launches against the rule")
     for n, net in nets.items():
         check(any(not torch.equal(p, q)
                   for p, q in zip(net.parameters(), before[n])),
@@ -4977,6 +5191,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     p15 = fullwidth_steps("cuda", card)
 
+    # ---- phase 16: the hand-written f32 convolution at its shapes ---------
+    torch.cuda.empty_cache()
+    p16 = conv_kernel("cuda", card)
+    conv_paths.update(p8["conv_paths"])
+
     # `launches` sums the main paths (serving, the train step, the trainer,
     # evaluate, phase 8's bf16 / remat / grad_accum paths, phase 9's
     # serving program, phase 10's int8 and packed paths, phase 11's
@@ -4988,6 +5207,11 @@ def main() -> int:
     # both: `ms` a launch of 20 back to back, `single_launch_ms` the median
     # of single launches, each between its own pair of events.  `n4096`
     # holds the same at N=4096 (512 px), B=1 and B=8, center hole.
+    # conv2d_f32's `launches_by_path` counts phases 3, 5 and 8 (each
+    # checked against the rule of tests/torch_conv_shapes.py); its `ms`, `library_ms` (cuDNN's for the same calls) and
+    # `bound_ms` (2MNK at F32_FLOPS_PER_S) sum phase 16's times a launch
+    # over one 256 px f32 train step's routed calls, `per_path` the same
+    # for each of phase 16's paths.
     t8, k8 = timings[8], kbar_timings[8]
     by_path = lambda name: {"serving": launches[name],
                             "training": train_launches[name],
@@ -5024,7 +5248,20 @@ def main() -> int:
         "ms": k8["ms"], "single_launch_ms": k8["single_ms"],
         "plain_ms": k8["plain_ms"],
         "bound_ms": k8["bound_ms"], "bound_by": k8["bound_by"],
-        "library_ms": None, "n4096": n4096("kbar_build")}]}))
+        "library_ms": None, "n4096": n4096("kbar_build")}, {
+        "name": "conv2d_f32", "route": "cuda",
+        "source": "deepinpainting_torch/csrc/conv2d.cu",
+        "replaces": "cuDNN f32: F.conv2d of a kernel-4 Conv2d, aten's "
+                    "ConvTranspose2d input gradient",
+        "launches": sum(conv_paths.values()),
+        "launches_by_path": conv_paths,
+        "max_abs_err": p16["max_abs_err"],
+        "max_err_over_cudnn": p16["max_err_over_cudnn"],
+        "ms": p16["paths"]["train256_f32"]["ms"],
+        "bound_ms": p16["paths"]["train256_f32"]["bound_ms"],
+        "bound_by": "ops",
+        "library_ms": p16["paths"]["train256_f32"]["library_ms"],
+        "per_path": p16["paths"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5043,4 +5280,6 @@ if __name__ == "__main__":
         sys.exit(phase_only(protocol_runner))
     if sys.argv[1:3] == ["--phase", "15"]:  # the build and phase 15 alone
         sys.exit(phase_only(fullwidth_steps))
+    if sys.argv[1:3] == ["--phase", "16"]:  # the build and phase 16 alone
+        sys.exit(phase_only(conv_kernel))
     sys.exit(main())

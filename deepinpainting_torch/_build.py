@@ -22,10 +22,11 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-KERNELS = ("scan_stream", "kbar_build")
+KERNELS = ("scan_stream", "kbar_build", "conv2d")
 
 # No --use_fast_math: the scan's divisions must stay IEEE, and neither
-# kernel's multiply-add steps may be contracted.
+# attention kernel's multiply-add steps may be contracted (the
+# convolution's FFMA are written out).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -81,8 +82,11 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The built library for `name`, building it on first use."""
+    """The built library for `name`.  The first load builds every kernel
+    of KERNELS not built yet, in parallel, so that a program pays for one
+    nvcc run, the longest, and not for each in turn."""
     with _lock:
         if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(build([name])[name]))
+            paths = build(KERNELS if name in KERNELS else [name])
+            _libs[name] = ctypes.CDLL(str(paths[name]))
         return _libs[name]

@@ -25,7 +25,10 @@ Conv modes (Config.quant / pack_small_cin / pack_out), chosen per call as
 the JAX package's trace-time `conv_modes(cfg)` chooses them: an entry
 point runs its body inside `conv_modes(cfg)`, and every Conv2d /
 ConvTranspose2d routes in the JAX package's order, int8 (ops/quant.py),
-then pack_small_cin, then pack_out, then the direct conv.  The modes are
+then pack_small_cin, then pack_out, then the direct conv (on a CUDA f32
+input with no mode in force, the hand-written kernel of ops/conv_cuda.py
+for a kernel-4 Conv2d's forward or a ConvTranspose2d's input gradient,
+where conv_cuda.takes the shape; see that section below).  The modes are
 held per thread and are no part of any module's state, so state_dicts do
 not change.  Autograd may run a backward, and so a checkpointed level's
 recompute, in another thread: models/remat.py captures the modes when the
@@ -76,7 +79,7 @@ from ..parallel.collectives import (all_reduce_sum, batch_group,
                                     current_spatial, full_rows,
                                     halo_exchange, own_rows, replicated)
 from ..utils.profiling import span
-from . import quant
+from . import conv_cuda, quant
 
 INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
 NORMS = ("instance", "batch")
@@ -389,6 +392,166 @@ def _slab_conv_transpose2d(x, w, bias, stride, padding, sp):
     return y.narrow(2, above * s, x.shape[2] * s)
 
 
+# ---- the hand-written f32 convolution (csrc/conv2d.cu) ---------------------
+#
+# On a CUDA f32 input, with no conv mode and no spatial partition in force,
+# two convolutions leave cuDNN for ops/conv_cuda.py's kernel: the forward of
+# every kernel-4 Conv2d, and the input gradient of every ConvTranspose2d
+# (the plain conv of the output gradient by the layer's own weight).  The
+# other gradients, every kernel-3 Conv2d and every transposed forward stay
+# on cuDNN.  conv_cuda.takes, a rule over the GEMM's shape measured on the
+# card, keeps cuDNN where it is the faster; in a traced graph, whose batch
+# may be symbolic, the op applies the rule itself at run time.  Each launch
+# opens the span dip.hand.direct2d.
+
+
+@torch.library.custom_op("deepinpainting::conv2d_f32", mutates_args=(),
+                         device_types="cpu")
+def conv2d_f32(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+               stride: int, padding: int, dilation: int) -> torch.Tensor:
+    """F.conv2d as the custom op `deepinpainting::conv2d_f32`: on CUDA
+    tensors the hand-written kernel (ops/conv_cuda.py) where
+    conv_cuda.takes the shape and cuDNN elsewhere, F.conv2d itself on CPU
+    ones.  A new tensor."""
+    return F.conv2d(x, w, bias, stride, padding, dilation)
+
+
+@conv2d_f32.register_kernel("cuda")
+def _conv2d_f32_cuda(x, w, bias, stride, padding, dilation):
+    # a traced graph (torch.export, a symbolic batch) routes every call it
+    # might take here, and the rule picks by the batch the call brings
+    ks = w.shape[2]
+    m = (x.shape[0] * conv_cuda.out_size(x.shape[2], ks, stride, padding,
+                                         dilation)
+         * conv_cuda.out_size(x.shape[3], ks, stride, padding, dilation))
+    if conv_cuda.takes(m, w.shape[0], w.shape[1] * ks * ks, stride,
+                       dilation):
+        return conv_cuda.conv2d_f32_cuda(x, w, bias, stride, padding,
+                                         dilation)
+    return F.conv2d(x, w, bias, stride, padding, dilation)
+
+
+@conv2d_f32.register_fake
+def _conv2d_f32_fake(x, w, bias, stride, padding, dilation):
+    ks = w.shape[2]
+    return x.new_empty((
+        x.shape[0], w.shape[0],
+        conv_cuda.out_size(x.shape[2], ks, stride, padding, dilation),
+        conv_cuda.out_size(x.shape[3], ks, stride, padding, dilation)))
+
+
+def _hand_conv(x, w, bias, stride, padding, dilation):
+    """One launch of the kernel.  Run eagerly on the card it calls the
+    kernel's wrapper itself: going through the custom op's dispatcher
+    costs about 20 µs of host time a call, as much as the rest of the
+    launch (~30 µs on an H100's host); a trace (torch.export) and CPU
+    tensors take the op."""
+    with span("dip.hand.direct2d"):
+        x, w = x.contiguous(), w.contiguous()
+        if x.is_cuda and not torch.compiler.is_compiling():
+            return conv_cuda.conv2d_f32_cuda(x, w, bias, stride, padding,
+                                             dilation)
+        return conv2d_f32(x, w, bias, stride, padding, dilation)
+
+
+class HandConv2d(torch.autograd.Function):
+    """Conv2d whose forward is the hand-written kernel; its input and weight
+    gradients are aten's (cuDNN on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, stride, padding, dilation):
+        ctx.save_for_backward(x, w)
+        ctx.geometry = stride, padding, dilation, bias is not None
+        return _hand_conv(x, w, bias, stride, padding, dilation)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        s, p, d, has_bias = ctx.geometry
+        need = ctx.needs_input_grad
+        gx, gw, gb = torch.ops.aten.convolution_backward(
+            gy, x, w, [w.shape[0]] if has_bias else None, [s, s], [p, p],
+            [d, d], False, [0, 0], 1,
+            [need[0], need[1], has_bias and need[2]])
+        return gx, gw, gb, None, None, None
+
+
+class HandConvTranspose2d(torch.autograd.Function):
+    """ConvTranspose2d (output_padding 0, dilation 1) on aten (cuDNN on the
+    card) whose input gradient is the hand-written kernel: conv2d(gy, w,
+    stride, padding) with the layer's own weight [Cin, Cout, k, k]."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.geometry = stride, padding, bias is not None
+        return F.conv_transpose2d(x, w, bias, stride, padding)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        s, p, has_bias = ctx.geometry
+        need = ctx.needs_input_grad
+        gx = _hand_conv(gy, w, None, s, p, 1) if need[0] else None
+        gw = gb = None
+        if need[1] or (has_bias and need[2]):
+            _, gw, gb = torch.ops.aten.convolution_backward(
+                gy, x, w, [w.shape[1]] if has_bias else None, [s, s], [p, p],
+                [1, 1], True, [0, 0], 1,
+                [False, need[1], has_bias and need[2]])
+        return gx, gw, gb, None, None
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def _hand_routes(layer: nn.Module, x: torch.Tensor) -> bool:
+    """Whether `layer` (its weight and geometry) on x is a call the
+    hand-written kernel takes: an f32 input on the card, no conv mode and
+    no spatial partition in force, square geometry, groups 1, and a GEMM
+    shape that conv_cuda.takes (under a trace, whose batch may be
+    symbolic, any kernel-4 Conv2d: the op applies the rule at run
+    time)."""
+    if not (_on_card(x) and x.dtype == torch.float32
+            and layer.weight.dtype == torch.float32
+            and current_modes() == ConvModes() and current_spatial() is None
+            and layer.groups == 1 and layer.padding_mode == "zeros"
+            and len(set(layer.stride)) == 1 and len(set(layer.padding)) == 1
+            and len(set(layer.dilation)) == 1):
+        return False
+    bsz, _, h, wd = x.shape
+    ks, s, p, d = (layer.kernel_size[0], layer.stride[0], layer.padding[0],
+                   layer.dilation[0])
+    w = layer.weight
+    if isinstance(layer, nn.ConvTranspose2d):
+        # the input gradient: conv2d(gy, w) back onto x's pixels
+        return (ks in (3, 4) and d == 1 and layer.kernel_size[1] == ks
+                and not any(layer.output_padding)
+                and torch.is_grad_enabled() and x.requires_grad
+                and conv_cuda.takes(bsz * h * wd, w.shape[0],
+                                    w.shape[1] * ks * ks, s, 1))
+    if layer.kernel_size != (4, 4):
+        return False
+    if torch.compiler.is_compiling():
+        return True
+    ho = conv_cuda.out_size(h, ks, s, p, d)
+    wo = conv_cuda.out_size(wd, ks, s, p, d)
+    return conv_cuda.takes(bsz * ho * wo, w.shape[0], w.shape[1] * ks * ks,
+                           s, d)
+
+
+def _hand_conv2d(layer: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    args = (x, layer.weight, layer.bias, layer.stride[0], layer.padding[0],
+            layer.dilation[0])
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in args[:3]):
+        return HandConv2d.apply(*args)
+    return _hand_conv(*args)
+
+
 def _weight_as(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A conv's weight in its input's dtype: the f32 parameter itself, or
     its per-call cast (the bf16 boundary)."""
@@ -414,6 +577,8 @@ class Conv2d(nn.Conv2d):
                           self.dilation[0], x.shape[2])
         if y is not None:
             return y
+        if _hand_routes(self, x):
+            return _hand_conv2d(self, x)
         if x.dtype == self.weight.dtype:
             return super().forward(x)
         return _with_bias(self._conv_forward(x, w, None), self.bias)
@@ -433,6 +598,9 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                                     self.padding[0], x.shape[2])
         if y is not None:
             return y
+        if _hand_routes(self, x):
+            return HandConvTranspose2d.apply(x, self.weight, self.bias,
+                                             self.stride[0], self.padding[0])
         if x.dtype == self.weight.dtype:
             return super().forward(x)
         y = F.conv_transpose2d(x, w, None, self.stride, self.padding,

@@ -24,6 +24,9 @@ shared no-op and costs one check.  Every name is in `SPANS`:
                         dtype
   dip.remat.recompute   a checkpointed U-Net level's forward run again in
                         the backward
+  dip.hand.direct2d     a launch of the hand-written f32 convolution
+                        (ops/convs.py): a kernel-4 Conv2d's forward or a
+                        ConvTranspose2d's input gradient
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ import torch
 
 SPANS = ("dip.step", "dip.step.inputs", "dip.step.forward",
          "dip.step.d_phase", "dip.step.g_phase", "dip.step.optimiser",
-         "dip.data.wait", "dip.bf16.weight_cast", "dip.remat.recompute")
+         "dip.data.wait", "dip.bf16.weight_cast", "dip.remat.recompute",
+         "dip.hand.direct2d")
 
 _NO_SPAN = contextlib.nullcontext()
 
