@@ -9,9 +9,9 @@ For each seed, in one process: the program's numbers against the plain
 reference, as a run of the cell reads them (train: the step object's first
 steps; serve: the answers of a `--seconds` window at the cell's own load).
 For the first `--controls` seeds also the control, the reference put in
-the program's place one precision below the configuration's (f32: TF32
-convolutions and matmuls; bf16: float8 e4m3 conv operands), and for train
-cells the fault of half the batch left out (the reference on the first
+the program's place one precision below the configuration's (the family's
+`control`; IPSR's, f32: TF32 convolutions and matmuls; bf16: float8 e4m3
+conv operands), and for train cells the fault of half the batch left out (the reference on the first
 half of each batch) and the program against itself (a second step object
 from the same seed).  A step that returns its state unchanged reads 1 on
 delta3 by construction and needs no run.
@@ -20,37 +20,12 @@ delta3 by construction and needs no run.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-@contextlib.contextmanager
-def tf32():
-    import torch
-    flags = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = flags
-
-
-def control(cfg):
-    """(context, reference precision) of the control for cfg.dtype."""
-    import torch
-    from portbench.reference.nets import Precision
-    if cfg.dtype == "float32":
-        return tf32(), Precision(torch.float32)
-    return contextlib.nullcontext(), Precision(torch.bfloat16,
-                                               fp8_operands=True)
 
 
 def _program_readings(cell, cfg, seed, dev):
@@ -63,44 +38,45 @@ def _program_readings(cell, cfg, seed, dev):
 
 
 def train_seed(cell, cfg, seed, dev, with_control: bool) -> dict:
-    from portbench import compare, harness
+    from portbench import harness
     s = _program_readings(cell, cfg, seed, dev)
+    fam = s.family
     program = s.readings
     ref = harness.train_reference(s)
-    out = {"program": compare.train_numbers(program, ref, cfg.gan_weight),
-           "worst": compare.train_worst_leaves(program, ref),
+    out = {"program": fam.train_numbers(program, ref, cfg),
+           "note": fam.train_note(program, ref),
            "losses": [program["losses"], ref["losses"]]}
     if with_control:
-        ctx, prec = control(cfg)
+        ctx, prec = fam.control(cfg)
         with ctx:
             ctrl = harness.train_reference(s, prec)
-        out["control"] = compare.train_numbers(ctrl, ref, cfg.gan_weight)
+        out["control"] = fam.train_numbers(ctrl, ref, cfg)
         half = harness.train_reference(s, half=True)
-        out["half_batch"] = compare.train_numbers(half, ref, cfg.gan_weight)
+        out["half_batch"] = fam.train_numbers(half, ref, cfg)
         # the program against itself: a second step object from the seed
         again = _program_readings(cell, cfg, seed, dev).readings
-        out["repeat"] = compare.train_numbers(again, program, cfg.gan_weight)
+        out["repeat"] = fam.train_numbers(again, program, cfg)
     return out
 
 
 def serve_seed(cell, cfg, seed, dev, seconds, with_control: bool) -> dict:
-    from portbench import compare, harness
+    from portbench import harness
     s = harness.serve_setup(cell, cfg, seed, dev)
+    fam = s.family
     _, answers, _ = harness.serve_window(s, cell.traffic, seed, seconds,
                                          False)
     s.session.close()
     s.session = None
     harness._free()
     ref = harness.serve_reference(s, answers)
-    out = {"program": compare.serve_numbers(answers, ref),
-           "self": compare.serve_self_spread(answers),
+    out = {"program": fam.serve_numbers(answers, ref),
+           "note": fam.serve_note(answers),
            "answers": sum(len(v) for v in answers.values())}
     if with_control:
-        ctx, prec = control(cfg)
+        ctx, prec = fam.control(cfg)
         with ctx:
             ctrl = harness.serve_reference(s, answers, prec)
-        out["control"] = compare.serve_numbers(
-            {i: [ctrl[i]] for i in ctrl}, ref)
+        out["control"] = fam.serve_numbers({i: [ctrl[i]] for i in ctrl}, ref)
     return out
 
 

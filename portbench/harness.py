@@ -5,23 +5,25 @@ A cell is found by name in BENCHMARK.json; its configuration, traffic mix
 and limits are files of their own (configs/, traffic/, workloads/), and
 each metric is a reader of its own (end_to_end/, metrics/) that takes the
 Window below and returns a number, or None where it finds nothing to read.
+Whatever depends on the model is its family's (families/<family>.py, named
+by the configuration file's `family`, `ipsr` where it names none): see
+load_family.
 
 The program under test is `deepinpainting_torch`; the benchmark takes from
 it only the entry points it times and their counters.  Kinds of traffic:
 
-  train   make_train_step's step fed by data/iterator.py::device_batches
+  train   the family's train step fed by data/iterator.py::device_batches
           from a pool of seeded uint8 batches; the first steps are the
           warm-up and the steps the reference follows
-  closed  InferenceSession.run from client threads, each sending its next
-          request when its last one is answered
-  open    InferenceSession.run on a seeded Poisson schedule, each request
+  closed  the family's serving session from client threads, each sending
+          its next request when its last one is answered
+  open    the serving session on a seeded Poisson schedule, each request
           timed from when it was due
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import gc
 import importlib.util
 import json
@@ -34,7 +36,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from . import compare, counts, drivers, images
+from . import drivers, images
 from . import trace as T
 from . import weights as W
 
@@ -42,6 +44,7 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 WARM_STEPS = 3               # train: the steps the reference follows
 FORBIDDEN = ("jax", "jaxlib", "flax", "deepinpainting_tpu")
+DEFAULT_FAMILY = "ipsr"
 
 
 @dataclass
@@ -53,46 +56,96 @@ class Cell:
     limits: Dict[str, float]
     end_to_end: List[tuple]
     per_layer: List[tuple]
+    family: str = DEFAULT_FAMILY
+    home: Path = HERE               # the folder of its files
 
 
-def load_cell(name: str, bench_path: Path = ROOT / "BENCHMARK.json") -> Cell:
-    """The cell `name` of BENCHMARK.json with its files."""
+def load_cell(name: str, bench_path: Path = ROOT / "BENCHMARK.json",
+              home: Path = HERE) -> Cell:
+    """The cell `name` of BENCHMARK.json with its files: the configuration
+    file where BENCHMARK.json names it, relative to the file's folder, and
+    the traffic, workload, family and reader files under `home`."""
     bench = json.loads(Path(bench_path).read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
         raise KeyError(f"no workload {name!r} in {bench_path}")
     w = cells[name]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
-    config = json.loads((ROOT / conf["file"]).read_text())
-    traffic = json.loads((HERE / "traffic" / f"{w['traffic']}.json")
+    config = json.loads((Path(bench_path).parent / conf["file"]).read_text())
+    traffic = json.loads((home / "traffic" / f"{w['traffic']}.json")
                          .read_text())
-    own = json.loads((HERE / "workloads" / f"{name}.json").read_text())
+    own = json.loads((home / "workloads" / f"{name}.json").read_text())
 
     def listed(metrics):
         return [(m["name"], m["unit"]) for m in metrics
                 if name in m.get("workloads", [name])]
 
     return Cell(name, config, traffic, w["chips"], own["limits"],
-                listed(bench["end_to_end"]), listed(bench["per_layer"]))
+                listed(bench["end_to_end"]), listed(bench["per_layer"]),
+                config.get("family", DEFAULT_FAMILY), Path(home))
+
+
+def _load_file(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_reader(kind: str, name: str, home: Path = HERE) -> Callable:
+    """The `read` function of <home>/<kind>/<name>.py."""
+    return _load_file(Path(home) / kind / f"{name}.py",
+                      f"portbench.{kind}.{name.replace('.', '_')}").read
+
+
+def load_family(name: str, home: Path = HERE):
+    """The module <home>/families/<name>.py: a model family's part of the
+    benchmark.  It holds, by these names,
+
+      check_cell(config, kind, limits)   raise for a cell it does not state
+      program_config(fields)             the program's configuration object
+                                         (fine_size, batch_size, dtype,
+                                         metrics_every, beta1 and its own)
+      networks(cfg, train)               {name: module} on the meta device
+      leaf_std(cfg)                      (net, key, shape) -> the std of a
+                                         leaf's normal draw, or None
+                                         (weights.draw)
+      train_state(cfg, nets), train_step(cfg, dev)
+                                         the program's state and its step
+                                         (state, batch) -> (state, metrics)
+      trained(state)                     {name: (module, Adam)} it trains
+      session(cfg, nets, traffic, dev)   the serving session: .run(**inputs)
+                                         answers uint8 [B,H,W,3], .close(),
+                                         ._batcher counts calls and items
+      inputs(pool, rows)                 {name: array} of pool rows: a train
+                                         batch, or a request's arguments
+      flops(kind, shapes, cfg)           {dtype: operations an image}
+      launches()                         {kernel: launches so far}
+      bounds(window, cfg, pool, dev)     {kernel: least seconds of the
+                                         window's launches}
+      missing(window)                    kernels.missing on a card
+      train_reference(cfg, weights, batches, dev, prec=None)
+      serve_reference(cfg, weights, batch, dev, prec=None)
+                                         the plain reference's readings and
+                                         uint8 answers (prec: a control's)
+      train_numbers(program, reference, cfg), serve_numbers(answers,
+      reference)                         {number: value} compared
+      train_note(...), serve_note(answers)
+                                         a line for the run's log
+      control(cfg)                       (context, prec): calibrate.py's
+    """
+    return _load_file(Path(home) / "families" / f"{name}.py",
+                      f"portbench.families.{name}")
+
+
+def family_of(cell: Cell):
+    return load_family(cell.family, cell.home)
 
 
 def program_config(cell: Cell, **override):
-    """The program's Config of the cell (fields of the config file)."""
-    from deepinpainting_torch.config import Config
-    names = {f.name for f in dataclasses.fields(Config)}
-    fields = {k: v for k, v in cell.config.items() if k in names}
-    fields.update(override)
-    return Config(**fields)
-
-
-def load_reader(kind: str, name: str) -> Callable:
-    """The `read` function of <kind>/<name>.py."""
-    path = HERE / kind / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"portbench.{kind}.{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    """The program's configuration of the cell (fields of the config
+    file, `override` on top)."""
+    return family_of(cell).program_config({**cell.config, **override})
 
 
 def forbidden_modules(modules) -> List[str]:
@@ -115,24 +168,12 @@ class Window:
     counters: Dict[str, float] = field(default_factory=dict)
     trace: Optional[T.Trace] = None
     flops: Dict[str, float] = field(default_factory=dict)  # an image
-    scan_bound_s: float = 0.0
-    kbar_bound_s: float = 0.0
+    rows: list = field(default_factory=list)     # pool rows of each step or
+                                                 # request answered
+    bounds: Dict[str, float] = field(default_factory=dict)  # kernel: least s
 
 
 # ---- the program's networks and weights -------------------------------------
-
-def _program_nets(cfg, train: bool) -> Dict:
-    """The program's networks built on the meta device (no host init)."""
-    import torch
-    from deepinpainting_torch.engine import inpaint as TI
-    with torch.device("meta"):
-        models = TI.build_models(cfg)
-        nets = {"G": models.G, "P": models.P, "vgg": models.vgg}
-        if train:
-            disc = TI.build_discriminators(cfg)
-            nets.update(D=disc.D, F=disc.F)
-    return nets
-
 
 def _load(nets: Dict, weights: Dict, dev) -> None:
     for name, net in nets.items():
@@ -146,56 +187,44 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _launches() -> Dict[str, int]:
-    from deepinpainting_torch.ops import attention_cuda as TAC
-    return {"scan": TAC.launches, "kbar": TAC.kbar_launches}
-
-
-def _masked_counts(masks: np.ndarray, cfg, dev) -> np.ndarray:
-    """Masked attention positions of each hole in the pool."""
-    import torch
-    from .reference.step import feature_flags
-    out = []
-    for lo in range(0, len(masks), 64):
-        m = (torch.as_tensor(masks[lo:lo + 64], device=dev) > 0).float()
-        _, flag = feature_flags(m, cfg.threshold, cfg.mask_thred)
-        out.append(flag.sum(1).cpu().numpy())
-    return np.concatenate(out).astype(np.int64)
+def _launches(family) -> Dict[str, int]:
+    return {f"{k}_launches": v for k, v in family.launches().items()}
 
 
 # ---- train ------------------------------------------------------------------
 
-def _batches(pool, refs, batch: int, stop: threading.Event):
-    """Pool batch i % n as {'image', 'mask', 'ref'} until stopped."""
+def _rows(batch: int, i: int) -> slice:
+    return slice(i * batch, (i + 1) * batch)
+
+
+def _batches(pool, inputs, batch: int, stop: threading.Event):
+    """The family's inputs of pool batch i % n until stopped."""
     n = len(pool["image"]) // batch
     i = 0
     while not stop.is_set():
-        sl = slice((i % n) * batch, (i % n + 1) * batch)
-        yield {"image": pool["image"][sl], "mask": pool["mask"][sl],
-               "ref": pool["image"][refs[sl]]}
+        yield inputs(pool, _rows(batch, i % n))
         i += 1
 
 
-def _adam_first_grads(state, beta1: float) -> Dict[str, float]:
+def _adam_first_grads(trained: Dict, beta1: float) -> Dict[str, float]:
     """Each leaf's first gradient as its optimiser took it: exp_avg /
     (1 - beta1) after one step, as norms (0 where it took none)."""
     import torch
     keys, vals = [], []
-    for net in ("G", "P", "D", "F"):
-        opt = getattr(state, f"opt_{net}")
-        for k, p in getattr(state, net).named_parameters():
+    for net, (module, opt) in trained.items():
+        for k, p in module.named_parameters():
             keys.append(f"{net}.{k}")
             m = opt.state[p].get("exp_avg", torch.zeros_like(p))
             vals.append(torch.linalg.vector_norm(m.double()) / (1.0 - beta1))
     return dict(zip(keys, torch.stack(vals).cpu().tolist()))
 
 
-def _deltas(state, weights) -> Dict[str, float]:
+def _deltas(trained: Dict, weights) -> Dict[str, float]:
     """Each leaf's change from the initial weights, as norms."""
     import torch
     keys, vals = [], []
-    for net in ("G", "P", "D", "F"):
-        for k, p in getattr(state, net).named_parameters():
+    for net, (module, _) in trained.items():
+        for k, p in module.named_parameters():
             keys.append(f"{net}.{k}")
             vals.append(torch.linalg.vector_norm(
                 (p.detach() - weights[net][k]).double()))
@@ -204,17 +233,16 @@ def _deltas(state, weights) -> Dict[str, float]:
 
 @dataclass
 class TrainSetup:
+    family: object
     cfg: object
     dev: object
     weights: Dict
     pool: Dict
-    refs: np.ndarray
     state: object
     step: Callable
     feed: object
     stop: threading.Event
     readings: Dict
-    masked: np.ndarray          # masked attention positions a pool batch
     shapes: Dict
 
 
@@ -222,38 +250,34 @@ def train_setup(cell: Cell, cfg, seed: int, dev) -> TrainSetup:
     """The step object from the seed, driven through its first steps by the
     window's own call and feed; the readings the reference is held to."""
     from deepinpainting_torch.data.iterator import device_batches
-    from deepinpainting_torch.engine import inpaint as TI
-    from deepinpainting_torch.engine.state import create_train_state
+    fam = family_of(cell)
     t = cell.traffic
     clock = _Phases()
-    nets = _program_nets(cfg, train=True)
+    nets = fam.networks(cfg, train=True)
     shapes = W.shapes_of(nets)
-    weights = W.draw(shapes, seed, dev, cfg.init_gain, cfg.init_type)
+    weights = W.draw(shapes, seed, dev, fam.leaf_std(cfg))
     _load(nets, weights, dev)
-    state = create_train_state(cfg, nets["G"], nets["P"], nets["D"],
-                               nets["F"], nets["vgg"].eval())
-    step = TI.make_train_step(cfg, dev)
+    state = fam.train_state(cfg, nets)
+    step = fam.train_step(cfg, dev)
     clock.mark("weights", dev)
     n = t["pool_batches"] * cfg.batch_size
     pool = images.pool(seed, n, cfg.fine_size, dev)
-    refs = images.ref_index(n)
     stop = threading.Event()
-    feed = device_batches(_batches(pool, refs, cfg.batch_size, stop), dev)
+    feed = device_batches(_batches(pool, fam.inputs, cfg.batch_size, stop),
+                          dev)
     clock.mark("inputs", dev)
     losses, grad1 = [], None
     for k in range(WARM_STEPS):
         state, m = step(state, next(feed))
         losses.append({name: float(v) for name, v in m.items()})
         if k == 0:
-            grad1 = _adam_first_grads(state, cfg.beta1)
+            grad1 = _adam_first_grads(fam.trained(state), cfg.beta1)
         clock.mark(f"step {k + 1}", dev)
     readings = {"losses": losses, "grad1": grad1,
-                "delta3": _deltas(state, weights)}
+                "delta3": _deltas(fam.trained(state), weights)}
     clock.log()
-    masked = _masked_counts(pool["mask"], cfg, dev).reshape(
-        -1, cfg.batch_size).sum(1)
-    return TrainSetup(cfg, dev, weights, pool, refs, state, step, feed, stop,
-                      readings, masked, shapes)
+    return TrainSetup(fam, cfg, dev, weights, pool, state, step, feed, stop,
+                      readings, shapes)
 
 
 def close_feed(s: TrainSetup) -> None:
@@ -268,14 +292,10 @@ def train_window(s: TrainSetup, seconds: float, traced: bool) -> Window:
     ending in a synchronise."""
     from torch.profiler import record_function
     cfg, dev = s.cfg, s.dev
-    before = _launches()
+    before = _launches(s.family)
     waits: List[float] = []
     steps = failed = 0
-    scan_s = 0.0                # the scan's least time, one launch a step
     b = cfg.batch_size
-    n = (cfg.fine_size // 8) ** 2
-    c = cfg.ngf * 8
-    batches = len(s.masked)
     cap = T.capture(lambda: _sync(dev)) if traced \
         else contextlib.nullcontext()
     _sync(dev)
@@ -288,8 +308,6 @@ def train_window(s: TrainSetup, seconds: float, traced: bool) -> Window:
                 waits.append(time.perf_counter() - a)
             with record_function("portbench.step"):
                 s.state, m = s.step(s.state, batch)
-            i = (WARM_STEPS + steps) % batches
-            scan_s += counts.scan_seconds(b * n, int(s.masked[i]), c)
             steps += 1
             if steps % cfg.metrics_every == 0:
                 with record_function("portbench.metrics_fetch"):
@@ -299,42 +317,27 @@ def train_window(s: TrainSetup, seconds: float, traced: bool) -> Window:
                 break
         _sync(dev)
         t1 = time.perf_counter()
-    after = _launches()
-    launched = {k: after[k] - before[k] for k in after}
-    per_step = {k: v / steps for k, v in launched.items()}
-    w = Window("train", t1 - t0, steps=steps, images=steps * b,
-               attempted=steps, failed=failed, spans={"data.wait": waits},
-               counters={"scan_launches": launched["scan"],
-                         "kbar_launches": launched["kbar"]},
-               trace=got.trace if traced else None)
-    # every launch of a step (the recompute's too) reads that step's batch
-    w.scan_bound_s = per_step["scan"] * scan_s
-    w.kbar_bound_s = launched["kbar"] * counts.kbar_seconds(b, n)
-    return w
+    after = _launches(s.family)
+    n_batches = len(s.pool["image"]) // b
+    return Window("train", t1 - t0, steps=steps, images=steps * b,
+                  attempted=steps, failed=failed, spans={"data.wait": waits},
+                  counters={k: after[k] - before[k] for k in after},
+                  trace=got.trace if traced else None,
+                  rows=[_rows(b, (WARM_STEPS + k) % n_batches)
+                        for k in range(steps)])
 
 
 def train_reference(s: TrainSetup, prec=None, half: bool = False) -> Dict:
     """The reference's readings over the same first steps from the same
     weights and batches (with `half`, the first half of each batch only:
     a fault for the check's calibration)."""
-    from .reference import step as R
-    cfg = s.cfg
-    prec = prec or R.Precision(_torch_dtype(cfg.dtype))
-    ref = R.TrainReference(s.weights, R.config_dict(cfg), prec, s.dev)
-    losses = []
-    rows = cfg.batch_size // 2 if half else cfg.batch_size
-    for k in range(WARM_STEPS):
-        sl = slice(k * cfg.batch_size, k * cfg.batch_size + rows)
-        losses.append(ref.step({"image": s.pool["image"][sl],
-                                "mask": s.pool["mask"][sl],
-                                "ref": s.pool["image"][s.refs[sl]]}))
-    grad1 = R.leaf_norms(ref.first_grads)
-    deltas = R.leaf_norms({net: {k: ref.w[net][k] - s.weights[net][k]
-                                 for k in ref.w[net]}
-                           for net in R.TRAINED})
-    del ref
+    b = s.cfg.batch_size
+    rows = b // 2 if half else b
+    batches = [s.family.inputs(s.pool, slice(k * b, k * b + rows))
+               for k in range(WARM_STEPS)]
+    out = s.family.train_reference(s.cfg, s.weights, batches, s.dev, prec)
     _free()
-    return {"losses": losses, "grad1": grad1, "delta3": deltas}
+    return out
 
 
 def _log(msg: str) -> None:
@@ -359,11 +362,6 @@ class _Phases:
         _log("set-up s: " + ", ".join(self.marks))
 
 
-def _torch_dtype(name: str):
-    import torch
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
-
-
 def _free() -> None:
     import torch
     gc.collect()
@@ -374,24 +372,23 @@ def _free() -> None:
 def run_train(cell: Cell, cfg, seed: int, seconds: float, traced: bool, dev,
               started: float) -> Dict:
     import torch
-    from .reference import step as R
     s = train_setup(cell, cfg, seed, dev)
     _sync(dev)
     setup_s = time.time() - started
     window = train_window(s, seconds, traced)
-    window.flops = counts.train_flops(s.shapes, cfg.fine_size, cfg.dtype)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     close_feed(s)
+    fam = s.family
+    window.flops = fam.flops("train", s.shapes, cfg)
+    window.bounds = fam.bounds(window, cfg, s.pool, dev)
     program = s.readings
     s.state = s.step = s.feed = None
     _free()
     reference = train_reference(s)
-    numbers = compare.train_numbers(program, reference, cfg.gan_weight)
-    _log(f"worst leaves {compare.train_worst_leaves(program, reference)}")
+    numbers = fam.train_numbers(program, reference, cfg)
+    _log(fam.train_note(program, reference))
     if dev.type == "cuda":
-        numbers["kernels.missing"] = float(
-            max(0, window.steps - window.counters["scan_launches"])
-            + max(0, window.steps - window.counters["kbar_launches"]))
+        numbers["kernels.missing"] = fam.missing(window)
     return {"setup_s": setup_s, "window": window, "numbers": numbers,
             "memory_peak_bytes": int(peak)}
 
@@ -400,11 +397,11 @@ def run_train(cell: Cell, cfg, seed: int, seconds: float, traced: bool, dev,
 
 @dataclass
 class ServeSetup:
+    family: object
     cfg: object
     dev: object
     weights: Dict
     pool: Dict
-    refs: np.ndarray
     session: object
     keep: np.ndarray
     shapes: Dict
@@ -414,29 +411,24 @@ def serve_setup(cell: Cell, cfg, seed: int, dev) -> ServeSetup:
     """The session over seeded weights, every batch size the coalescer can
     form warmed, and the seeded sample of pool entries whose answers are
     checked."""
-    from deepinpainting_torch.engine import inpaint as TI
-    from deepinpainting_torch.serve.app import InferenceSession
+    fam = family_of(cell)
     t = cell.traffic
     clock = _Phases()
-    nets = _program_nets(cfg, train=False)
+    nets = fam.networks(cfg, train=False)
     shapes = W.shapes_of(nets)
-    weights = W.draw(shapes, seed, dev, cfg.init_gain, cfg.init_type)
+    weights = W.draw(shapes, seed, dev, fam.leaf_std(cfg))
     _load(nets, weights, dev)
-    models = TI.Models(nets["G"].eval(), nets["P"].eval(), nets["vgg"].eval())
-    session = InferenceSession(cfg, state=models, max_batch=t["max_batch"],
-                               batch_wait_ms=t["batch_wait_ms"], device=dev)
+    session = fam.session(cfg, nets, t, dev)
     clock.mark("weights", dev)
     pool = images.pool(seed, t["pool"], cfg.fine_size, dev)
-    refs = images.ref_index(t["pool"])
     clock.mark("inputs", dev)
     for b in range(1, t["max_batch"] + 1):
-        session.run(pool["image"][:b], pool["mask"][:b],
-                    pool["image"][refs[:b]])
+        session.run(**fam.inputs(pool, slice(0, b)))
         clock.mark(f"B={b}", dev)
     clock.log()
     keep = np.random.default_rng(seed).choice(t["pool"], size=t["sample"],
                                               replace=False)
-    return ServeSetup(cfg, dev, weights, pool, refs, session, np.sort(keep),
+    return ServeSetup(fam, cfg, dev, weights, pool, session, np.sort(keep),
                       shapes)
 
 
@@ -444,17 +436,16 @@ def serve_window(s: ServeSetup, traffic: Dict, seed: int, seconds: float,
                  traced: bool):
     """The cell's load for `seconds`; returns (Window, {pool index: [the
     uint8 answers it got]}, lateness of the generator in s)."""
-    pool, refs, session = s.pool, s.refs, s.session
+    pool, session, inputs = s.pool, s.session, s.family.inputs
     keep = set(int(i) for i in s.keep)
     n_pool = len(pool["image"])
 
     def call(i):
-        return session.run(pool["image"][i:i + 1], pool["mask"][i:i + 1],
-                           pool["image"][refs[i]][None])[0]
+        return session.run(**inputs(pool, slice(i, i + 1)))[0]
 
     batcher = session._batcher
     before = {"batches_run": batcher.batches_run,
-              "items_served": batcher.items_served, **_launches()}
+              "items_served": batcher.items_served, **_launches(s.family)}
     cap = T.capture(lambda: _sync(s.dev)) if traced \
         else contextlib.nullcontext()
     with cap as got:
@@ -465,39 +456,28 @@ def serve_window(s: ServeSetup, traffic: Dict, seed: int, seconds: float,
             rec = drivers.open_loop(call, traffic["rate"], seconds,
                                     seed, traffic["senders"], keep, n_pool)
     after = {"batches_run": batcher.batches_run,
-             "items_served": batcher.items_served, **_launches()}
-    d = {k: after[k] - before[k] for k in after}
-    masked = _masked_counts(pool["mask"], s.cfg, s.dev)
-    n = (s.cfg.fine_size // 8) ** 2
-    c = s.cfg.ngf * 8
+             "items_served": batcher.items_served, **_launches(s.family)}
     done = [r for r in rec.requests if r.ok]
     w = Window("serve", rec.seconds, images=len(done),
                latencies=[r.done - r.due for r in rec.requests],
                attempted=len(rec.requests),
                failed=len(rec.requests) - len(done),
-               counters={"batches_run": d["batches_run"],
-                         "items_served": d["items_served"],
-                         "scan_launches": d["scan"],
-                         "kbar_launches": d["kbar"]},
-               trace=got.trace if traced else None)
-    w.scan_bound_s = sum(counts.scan_seconds(n, int(masked[r.index % n_pool]),
-                                             c) for r in done)
+               counters={k: after[k] - before[k] for k in after},
+               trace=got.trace if traced else None,
+               rows=[r.index % n_pool for r in done])
     return w, rec.answers, rec.lateness
 
 
 def serve_reference(s: ServeSetup, answers: Dict, prec=None) -> Dict:
     """The reference's answer to each checked pool entry, uint8 on the
     host, in batches of 8."""
-    from .reference import step as R
-    cfg = s.cfg
-    prec = prec or R.Precision(_torch_dtype(cfg.dtype))
     idx = sorted(answers)
     out = {}
     for lo in range(0, len(idx), 8):
         part = np.array(idx[lo:lo + 8])
-        u8 = R.serve(s.weights, s.pool["image"][part], s.pool["mask"][part],
-                     s.pool["image"][s.refs[part]], R.config_dict(cfg), prec,
-                     s.dev).cpu().numpy()
+        u8 = s.family.serve_reference(s.cfg, s.weights,
+                                      s.family.inputs(s.pool, part), s.dev,
+                                      prec).cpu().numpy()
         out.update(zip(part.tolist(), u8))
     return out
 
@@ -510,7 +490,6 @@ def run_serve(cell: Cell, cfg, seed: int, seconds: float, traced: bool, dev,
     setup_s = time.time() - started
     window, answers, lateness = serve_window(s, cell.traffic, seed, seconds,
                                              traced)
-    window.flops = counts.serve_flops(s.shapes, cfg.fine_size, cfg.dtype)
     if lateness:
         _log(f"open-loop generator late by p50 "
              f"{np.percentile(lateness, 50) * 1e3:.3f} ms, p99 "
@@ -519,17 +498,15 @@ def run_serve(cell: Cell, cfg, seed: int, seconds: float, traced: bool, dev,
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     s.session.close()
     s.session = None
+    fam = s.family
+    window.flops = fam.flops("serve", s.shapes, cfg)
+    window.bounds = fam.bounds(window, cfg, s.pool, dev)
     _free()
     reference = serve_reference(s, answers)
-    numbers = compare.serve_numbers(answers, reference)
-    _log(f"{sum(len(v) for v in answers.values())} answers to "
-         f"{len(answers)} pool entries checked; the program's own answers to "
-         f"one request differ by up to {compare.serve_self_spread(answers)!r}"
-         " levels")
+    numbers = fam.serve_numbers(answers, reference)
+    _log(fam.serve_note(answers))
     if dev.type == "cuda":
-        numbers["kernels.missing"] = float(max(
-            0, window.counters["batches_run"]
-            - window.counters["scan_launches"]))
+        numbers["kernels.missing"] = fam.missing(window)
     return {"setup_s": setup_s, "window": window, "numbers": numbers,
             "memory_peak_bytes": int(peak)}
 
@@ -559,7 +536,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
             value = out["setup_s"]
         else:
             value = load_reader("metrics" if traced else "end_to_end",
-                                name)(window)
+                                name, cell.home)(window)
         if value is not None:
             metrics[name] = {"value": value, "unit": unit}
     numbers = out["numbers"]

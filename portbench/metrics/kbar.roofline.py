@@ -3,7 +3,7 @@ the traced launches (counts.kbar_seconds) over its device time, in %."""
 
 
 def read(w):
-    if w.trace is None or not w.kbar_bound_s:
+    if w.trace is None or not w.bounds.get("kbar"):
         return None
     s = w.trace.seconds_of("kbar")
-    return w.kbar_bound_s / s * 100 if s > 0 else None
+    return w.bounds["kbar"] / s * 100 if s > 0 else None

@@ -4,7 +4,7 @@ each step's batch, a launch) over the kernel's device time, in %."""
 
 
 def read(w):
-    if w.trace is None or w.kind != "train" or not w.scan_bound_s:
+    if w.trace is None or w.kind != "train" or not w.bounds.get("scan"):
         return None
     s = w.trace.seconds_of("scan")
-    return w.scan_bound_s / s * 100 if s > 0 else None
+    return w.bounds["scan"] / s * 100 if s > 0 else None

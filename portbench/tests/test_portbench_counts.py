@@ -18,8 +18,9 @@ SIZE = 64
 def tiny():
     cell = harness.load_cell("train-256-f32")
     cfg = harness.program_config(cell, **TINY)
-    shapes = W.shapes_of(harness._program_nets(cfg, train=True))
-    w = W.draw(shapes, 5, torch.device("cpu"), cfg.init_gain)
+    fam = harness.family_of(cell)
+    shapes = W.shapes_of(fam.networks(cfg, train=True))
+    w = W.draw(shapes, 5, torch.device("cpu"), fam.leaf_std(cfg))
     return cfg, shapes, w
 
 

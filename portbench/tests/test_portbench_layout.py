@@ -1,6 +1,7 @@
 """BENCHMARK.json against the benchmark's own files and the shape it must
-have: every configuration, traffic mix, cell and metric is a file found
-by its name, and the names, units and `moves` arrows agree."""
+have: every configuration, traffic mix, cell, metric and model family is a
+file found by its name, the names, units and `moves` arrows agree, and each
+family accepts its cells."""
 
 import json
 import re
@@ -16,6 +17,12 @@ UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 E2E = {m["name"]: m for m in BENCH["end_to_end"]}
 CELLS = [w["name"] for w in BENCH["workloads"]]
 METRICS = BENCH["end_to_end"] + BENCH["per_layer"]
+CONFIGS = {c["name"]: json.loads((harness.ROOT / c["file"]).read_text())
+           for c in BENCH["configs"]}
+
+
+def family(config):
+    return config.get("family", harness.DEFAULT_FAMILY)
 
 
 def cells_of(metric):
@@ -39,10 +46,12 @@ def test_run_seconds_fits_a_full_check_of_24_cells():
 def test_config_file(entry):
     assert set(entry) == {"name", "source", "file", "reduced", "why"}
     assert entry["file"] == f"portbench/configs/{entry['name']}.json"
-    data = json.loads((harness.ROOT / entry["file"]).read_text())
+    data = CONFIGS[entry["name"]]
     assert data["source"] == entry["source"] and "assumed" in data
     assert entry["source"].startswith("https://")
-    assert entry["reduced"] == []
+    assert isinstance(entry["reduced"], list)
+    assert set(entry["reduced"]) <= set(data)
+    assert (HERE / "families" / f"{family(data)}.py").is_file()
     assert any(w["config"] == entry["name"] for w in BENCH["workloads"])
 
 
@@ -55,15 +64,10 @@ def test_cell_files_agree(entry):
         assert own[k] == entry[k]
     assert entry["chips"] == 1 and len(entry["why"]) <= 200
     cell = harness.load_cell(entry["name"])
-    cfg = harness.program_config(cell)
-    assert cfg.fine_size in (256, 512) and cfg.ngf == 64
-    kind = cell.traffic["kind"]
-    compared = ({"loss.step1.G", "grad1.median_leaf", "grad1.median_leaf.P",
-                 "delta3.worst_leaf"}
-                if kind == "train"
-                else {"u8.mean_levels"})
-    assert set(own["limits"]) == compared | {"kernels.missing"}
-    assert own["limits"]["kernels.missing"] == 0
+    assert cell.family == family(CONFIGS[entry["config"]])
+    harness.program_config(cell)
+    harness.family_of(cell).check_cell(cell.config, cell.traffic["kind"],
+                                       own["limits"])
     reported = [m for m in BENCH["end_to_end"]
                 if entry["name"] in cells_of(m)]
     assert "setup_s" in {m["name"] for m in reported} and len(reported) >= 2
@@ -79,9 +83,11 @@ def test_every_file_is_named():
         "workloads": set(CELLS),
         "end_to_end": set(E2E) - {"setup_s"},
         "metrics": {m["name"] for m in BENCH["per_layer"]},
+        "families": {family(c) for c in CONFIGS.values()},
     }
     for folder, names in want.items():
-        suffix = ".py" if folder in ("end_to_end", "metrics") else ".json"
+        suffix = ".py" if folder in ("end_to_end", "metrics", "families") \
+            else ".json"
         found = {p.name[:-len(suffix)] for p in (HERE / folder).iterdir()
                  if p.name.endswith(suffix)}
         assert found == names, folder

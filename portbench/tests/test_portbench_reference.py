@@ -23,8 +23,9 @@ def setup():
 
 
 def _program(cfg, dev, train, seed=3):
-    progs = harness._program_nets(cfg, train=train)
-    w = W.draw(W.shapes_of(progs), seed, dev, cfg.init_gain)
+    fam = harness.load_family("ipsr")
+    progs = fam.networks(cfg, train=train)
+    w = W.draw(W.shapes_of(progs), seed, dev, fam.leaf_std(cfg))
     harness._load(progs, w, dev)
     return progs, w
 
